@@ -8,13 +8,16 @@ non-zero:
 
   A. Build the CUDA kernels from ``must3r_tpu_torch/csrc`` (nvcc, sm_90a)
      and print the toolchain and the card.
-  B. Each kernel against its plain PyTorch version on the card, bf16, at the
-     main path's shapes: max abs error <= min(0.05, 2e-2 x max|plain|) and
-     relative RMSE <= 1e-2, no NaN, a fully-masked CA row = 0. Kernels and
-     library calls are timed on the device (a CUDA graph of 20 calls
-     replayed, ``must3r_tpu_torch/tools/timing.py``), the plain versions
-     with CUDA events around a Python loop; each kernel's events-over-
-     Python-launches time is printed beside its device time.
+  B. K1 (``sa_fwd``) at its four main-path shapes and K2 (``ca_fwd``) at
+     the update, init and render of a 10-view collection, both the TMA +
+     wgmma program of ``csrc/attention_sm90.cu``, against their plain
+     PyTorch versions on the card, bf16: max abs error <= min(0.05, 2e-2 x
+     max|plain|) and relative RMSE <= 1e-2, no NaN, a fully-masked CA row =
+     0. Kernels and the library yardstick (``scaled_dot_product_attention``)
+     are timed on the device (a CUDA graph of 20 calls replayed,
+     ``must3r_tpu_torch/tools/timing.py``), the plain versions with CUDA
+     events around a Python loop; each kernel's events-over-Python-launches
+     time is printed beside its device time, and its bound beside both.
   B'. The training kernels against their plain versions at the training
      path's shapes (512 and 224): K2 with the LSE and the token-dropout mask
      (LSE within 1e-2 absolute), K3 + K4 and K5 (dq, dk, dv each within
@@ -72,7 +75,7 @@ The last three lines are the card's name and power limit, every kernel's
 JSON record (launches summed over the counted runs of C, D, E, the probe
 and the bench tools, device times at one main-path shape each, bound and
 library time) and ``{"ok": true, "device": {...}}``. About two minutes on
-an H100, the build included.
+an H100, the build (five sources, one nvcc each, in parallel) included.
 """
 
 import json
@@ -1305,14 +1308,15 @@ def main():
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    fwd, bwd, fp8, ln = ("must3r_tpu_torch/csrc/attention.cu",
-                         "must3r_tpu_torch/csrc/attention_bwd.cu",
-                         "must3r_tpu_torch/csrc/probe_fp8.cu",
-                         "must3r_tpu_torch/csrc/ln_matmul.cu")
+    sm90, fwd, bwd, fp8, ln = ("must3r_tpu_torch/csrc/attention_sm90.cu",
+                               "must3r_tpu_torch/csrc/attention.cu",
+                               "must3r_tpu_torch/csrc/attention_bwd.cu",
+                               "must3r_tpu_torch/csrc/probe_fp8.cu",
+                               "must3r_tpu_torch/csrc/ln_matmul.cu")
     ca_all = ca + train_k["ca_fwd_train"]
     record = {"kernels": [
-        entry("sa_fwd", fwd, "must3r_tpu/ops/attention.py:213", sa, 0),
-        entry("ca_fwd", fwd, "must3r_tpu/ops/attention.py:554", ca_all,
+        entry("sa_fwd", sm90, "must3r_tpu/ops/attention.py:213", sa, 0),
+        entry("ca_fwd", sm90, "must3r_tpu/ops/attention.py:554", ca_all,
               len(ca) - 1),
         entry("ca_bwd_dq", bwd, "must3r_tpu/ops/attention.py:936",
               train_k["ca_bwd_dq"], 1),

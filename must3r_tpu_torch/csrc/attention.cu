@@ -1,46 +1,38 @@
-// Flash-attention forward kernels for the PyTorch port, hand-written for
-// Hopper (sm_90a), bf16 in / bf16 out, fp32 softmax statistics.
+// The WMMA attention forward program of the PyTorch port (sm_90a), bf16
+// out, fp32 softmax statistics. K1 and the bf16 K2 moved to the TMA + wgmma
+// program of attention_sm90.cu; two kernels stay here:
 //
-//   K1 sa_fwd : full unmasked self-attention, q/k/v/out [B, N, H, Dh].
-//               Replaces must3r_tpu/ops/attention.py::_sa_pallas.
-//   K2 ca_fwd : label-masked cross-attention of queries against one layer
-//               of the packed token memory. q/out [B, G, N, H, Dh];
-//               kv [B, H, S, 2*Dh] (k = first Dh features of a row, v = the
-//               last Dh); labels [B, S] int32 (-1 = free slot);
-//               q_self / q_upper [B, G] int32. A key j is attended when
+//   K2(d) ca_fwd_q8 : label-masked cross-attention of queries against one
+//               layer of an 8-bit token memory (template QUANT: int8 or fp8
+//               e4m3), replacing the kv_scales variant of
+//               must3r_tpu/ops/attention.py::_ca_pallas. q/out [B, G, N, H,
+//               Dh] bf16; kv8 [B, H, S, 2*Dh] codes (a row is 128 bytes, 64
+//               k codes then 64 v codes); scale [B, H, 2, S] fp32 holds the
+//               per-key k and v scales (deq = code * scale); labels [B, S]
+//               int32 (-1 = free slot); q_self / q_upper [B, G] int32. A
+//               key j is attended when
 //                 j < kv_len && lbl >= 0 && lbl != q_self && lbl < q_upper.
-//               Replaces must3r_tpu/ops/attention.py::_ca_pallas: the
-//               serving variant (a), and as template flags the training
-//               variants STATS (b, return_stats: fp32 per-row log-sum-exp
-//               lse [B, G, H, N] for the backward) and EXT (c, token
-//               dropout: ext [B, G, S] bool, a nonzero entry blocks key j
-//               for image g). With neither flag the code is the serving
-//               kernel's.
-//   K2(d) ca_fwd_q8 : the same block program against an 8-bit cache
-//               (template QUANT: int8 or fp8 e4m3), replacing the
-//               kv_scales variant of _ca_pallas. A cache row is 128 bytes,
-//               64 k codes then 64 v codes; scale [B, H, 2, S] fp32 holds
-//               the per-key k and v scales (deq = code * scale). The codes
-//               are loaded with 16-byte vector loads and converted to bf16
-//               while the tile is stored to shared memory: both conversions
-//               are exact (|int8| <= 127 fits bf16's 8-bit significand, and
-//               e4m3 has a 3-bit mantissa and a narrower exponent range).
-//               As in the TPU kernel, the k scale multiplies the score
-//               column, s = (q . k_code) * softmax_scale * kscale[j]; the
-//               row max and sum use p before the v scale, and p * vscale[j]
-//               is rounded to bf16 for the P.V product. It composes with
-//               STATS and EXT; serving launches it with neither. The WMMA
-//               products stay bf16: Q is bf16, so an fp8 wgmma would first
-//               need Q quantized (a later lever, with TMA).
+//               The codes are loaded with 16-byte vector loads and converted
+//               to bf16 while the tile is stored to shared memory: both
+//               conversions are exact (|int8| <= 127 fits bf16's 8-bit
+//               significand, and e4m3 has a 3-bit mantissa and a narrower
+//               exponent range). As in the TPU kernel, the k scale
+//               multiplies the score column, s = (q . k_code) *
+//               softmax_scale * kscale[j]; the row max and sum use p before
+//               the v scale, and p * vscale[j] is rounded to bf16 for the
+//               P.V product. It composes with the training flags STATS
+//               (fp32 log-sum-exp lse [B, G, H, N]) and EXT (ext [B, G, S]
+//               bool, a nonzero entry blocks key j for image g); serving
+//               launches it with neither.
 //   K6 ca_fwd_2h : two heads per block. Replaces _ca_pallas_2h of
 //               scripts/bench_ca_kernel.py, the microbenchmark's variant of
 //               _ca_pallas that runs a head pair over one shared label DMA:
 //               one image of queries (q/out [B, 1, N, H, Dh], H even), the
-//               whole cache [L, B, H, S, 2*Dh] with a layer index, and the
-//               mask j < kv_len && label >= 0 alone (no q_self / q_upper /
-//               ext, no LSE, no 8-bit cache).
+//               whole bf16 cache [L, B, H, S, 2*Dh] with a layer index, and
+//               the mask j < kv_len && label >= 0 alone (no q_self /
+//               q_upper / ext, no LSE, no 8-bit cache).
 //
-// All share one block program: a block owns 64 query rows of one
+// Both share one block program: a block owns 64 query rows of one
 // (batch*image, head). Its Q tile sits in shared memory; the block walks
 // 64-key K/V tiles, computes S = Q K^T and O += P V with bf16 WMMA
 // (mma.sync) at fp32 accumulation, and keeps the online-softmax row max and
@@ -50,20 +42,17 @@
 // block of 8 warps (4 per head, each head with its own Q/K/V/S/P/O
 // regions, ~70 KB each) and computes each tile's allow vector from the
 // labels once, into shared memory that both heads read: the TPU kernel's
-// shared label DMA. At ~140 KB a block, one K6 block fits an SM where three
-// K2 blocks do, so it is expected to be no faster than K2 (8 warps an SM
-// against 12); whether sharing the mask tile pays on Hopper is the question
-// it measures for the K2 redesign.
+// shared label DMA.
 //
-// What bounds it: at the main path's shapes (N = 768 for SA; 768..7680
-// query rows against 1536..7680 keys for CA) both kernels do ~4*Dh flops
-// per (query, key) pair against 2*Dh*2 bytes per key per 64 query rows, so
-// they are compute bound on the tensor cores (K2(d) moves half the cache
-// bytes of K2 plus 8 bytes of scales per key, and is compute bound too).
-// This first version is built for being right, not fast: scores and the
-// output accumulator make a round trip through shared memory each tile (the
-// WMMA fragment layout is opaque, so the per-row softmax rescale is done on
-// a shared copy), and there is no cp.async/TMA pipelining or wgmma. Those are the levers for a later pass.
+// What bounds it: ~4*Dh flops per (query, key) pair against 2*Dh bytes of
+// codes and 8 bytes of scales per key per 64 query rows (K6: 2*Dh*2 bytes
+// of bf16): operations, on the tensor cores. This program is built for
+// being right, not fast: scores and the output accumulator make a round
+// trip through shared memory each tile (the WMMA fragment layout is opaque,
+// so the per-row softmax rescale is done on a shared copy), and the tile
+// loads do not overlap the products. The K2(d) codes are converted in the
+// tile load, which a TMA ring would first have to move to the consumers
+// (ROADMAP queue B).
 //
 // Semantics that differ from the TPU kernel on purpose: a query row with no
 // attended key (every label masked, or kv_len == 0) returns 0. The Pallas
@@ -107,13 +96,10 @@ struct Layout {
                 "shared-memory regions must stay aligned");
 };
 
-// CA == false: k, v are [B, N, H, DH]; keys = N; every key is attended.
-// CA == true : k is the packed layer cache [B, H, S, 2*DH] (v unused);
-//              keys = kv_len; the label predicate decides.
-// STATS (CA only): also write the row's log-sum-exp to lse [B*G, H, N].
-// EXT (CA only): ext [B*G, S] bool; a nonzero entry blocks the key.
-// QUANT (CA only): 0 = bf16 cache in k; kQ8Int8 / kQ8Fp8 = 8-bit cache in
-//   kv8 ([B, H, S, 2*DH] codes) with its scales in kv_scale [B, H, 2, S].
+// STATS: also write the row's log-sum-exp to lse [B*G, H, N].
+// EXT: ext [B*G, S] bool; a nonzero entry blocks the key.
+// QUANT: kQ8Int8 / kQ8Fp8, the format of the 8-bit cache kv8 ([B, H, S,
+//   2*DH] codes), whose scales are in kv_scale [B, H, 2, S].
 constexpr int kQ8Int8 = 1;
 constexpr int kQ8Fp8 = 2;
 
@@ -141,7 +127,7 @@ __device__ __forceinline__ void codes_to_bf16(uint4 raw, uint4* dst) {
 using QFrag =
     wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 
-// The per-warp steps of one key tile, shared by K1/K2 and K6. A warp owns 16
+// The per-warp steps of one key tile, shared by K2(d) and K6. A warp owns 16
 // query rows: its Q rows as WMMA A fragments, and its rows of the score (S),
 // probability (P) and output-accumulator (O) regions in shared memory.
 
@@ -252,12 +238,9 @@ __device__ __forceinline__ void warp_store_half_row(const float* orow,
   }
 }
 
-template <int DH, bool CA, bool STATS = false, bool EXT = false,
-          int QUANT = 0>
+template <int DH, bool STATS, bool EXT, int QUANT>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
                 const uint8_t* __restrict__ kv8,
                 const float* __restrict__ kv_scale,
                 const int32_t* __restrict__ labels,
@@ -276,7 +259,7 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::P_OFF);
   float* sO = reinterpret_cast<float*>(smem + L::O_OFF);
   int* sAllow = reinterpret_cast<int*>(smem + L::A_OFF);
-  float* sKs = reinterpret_cast<float*>(smem + L::SC_OFF);   // QUANT only
+  float* sKs = reinterpret_cast<float*>(smem + L::SC_OFF);
   float* sVs = sKs + kBK;
 
   const int tid = threadIdx.x;
@@ -284,10 +267,10 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid % 32;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
-  const int bz = blockIdx.z;          // SA: batch; CA: batch * G + image
-  const int b = CA ? bz / G : bz;
-  const int qs = CA ? q_self[bz] : 0;
-  const int qu = CA ? q_upper[bz] : 0;
+  const int bz = blockIdx.z;          // batch * G + image
+  const int b = bz / G;
+  const int qs = q_self[bz];
+  const int qu = q_upper[bz];
   constexpr int VEC = DH / 8;         // 16-byte vectors per head row
 
   // Q tile (rows past N are zero) and a zeroed output accumulator.
@@ -320,56 +303,33 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     const int j0 = t * kBK;
     __syncthreads();                  // every warp is done with the last tile
-    if constexpr (QUANT != 0) {
-      // 8-bit rows: 16 codes per 16-byte load, k codes then v codes
-      constexpr int VEC8 = DH / 16;
-      for (int i = tid; i < kBK * VEC8; i += kThreads) {
-        const int r = i / VEC8, c = (i % VEC8) * 16;
-        const int j = j0 + r;
-        uint4 kraw = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vraw = kraw;
-        if (j < n_keys) {
-          const uint8_t* row = kv8 + ((size_t)(b * H + h) * S + j) * (2 * DH);
-          kraw = *reinterpret_cast<const uint4*>(row + c);
-          vraw = *reinterpret_cast<const uint4*>(row + DH + c);
-        }
-        codes_to_bf16<QUANT>(kraw,
-                             reinterpret_cast<uint4*>(sK + r * L::LDH + c));
-        codes_to_bf16<QUANT>(vraw,
-                             reinterpret_cast<uint4*>(sV + r * L::LDH + c));
+    // 8-bit rows: 16 codes per 16-byte load, k codes then v codes
+    constexpr int VEC8 = DH / 16;
+    for (int i = tid; i < kBK * VEC8; i += kThreads) {
+      const int r = i / VEC8, c = (i % VEC8) * 16;
+      const int j = j0 + r;
+      uint4 kraw = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vraw = kraw;
+      if (j < n_keys) {
+        const uint8_t* row = kv8 + ((size_t)(b * H + h) * S + j) * (2 * DH);
+        kraw = *reinterpret_cast<const uint4*>(row + c);
+        vraw = *reinterpret_cast<const uint4*>(row + DH + c);
       }
-      if (tid < kBK) {
-        const int j = j0 + tid;
-        const float* sc = kv_scale + (size_t)(b * H + h) * 2 * S;
-        sKs[tid] = j < n_keys ? sc[j] : 0.f;
-        sVs[tid] = j < n_keys ? sc[S + j] : 0.f;
-      }
-    } else {
-      for (int i = tid; i < kBK * VEC; i += kThreads) {
-        const int r = i / VEC, c = (i % VEC) * 8;
-        const int j = j0 + r;
-        uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vval = kval;
-        if (j < n_keys) {
-          if (CA) {
-            const __nv_bfloat16* row =
-                k + ((size_t)(b * H + h) * S + j) * (2 * DH);
-            kval = load16(row + c);
-            vval = load16(row + DH + c);
-          } else {
-            const size_t off = ((size_t)(bz * N + j) * H + h) * DH + c;
-            kval = load16(k + off);
-            vval = load16(v + off);
-          }
-        }
-        *reinterpret_cast<uint4*>(sK + r * L::LDH + c) = kval;
-        *reinterpret_cast<uint4*>(sV + r * L::LDH + c) = vval;
-      }
+      codes_to_bf16<QUANT>(kraw,
+                           reinterpret_cast<uint4*>(sK + r * L::LDH + c));
+      codes_to_bf16<QUANT>(vraw,
+                           reinterpret_cast<uint4*>(sV + r * L::LDH + c));
+    }
+    if (tid < kBK) {
+      const int j = j0 + tid;
+      const float* sc = kv_scale + (size_t)(b * H + h) * 2 * S;
+      sKs[tid] = j < n_keys ? sc[j] : 0.f;
+      sVs[tid] = j < n_keys ? sc[S + j] : 0.f;
     }
     if (tid < kBK) {
       const int j = j0 + tid;
       int ok = j < n_keys;
-      if (CA && ok) ok = slot_allowed(labels[(size_t)b * S + j], qs, qu);
+      if (ok) ok = slot_allowed(labels[(size_t)b * S + j], qs, qu);
       if constexpr (EXT) {
         if (ok) ok = ext[(size_t)bz * S + j] == 0;
       }
@@ -400,16 +360,14 @@ attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                                 half * (DH / 2));
 }
 
-template <int DH, bool CA, bool STATS = false, bool EXT = false,
-          int QUANT = 0>
-cudaError_t launch(const void* q, const void* k, const void* v,
+template <int DH, bool STATS, bool EXT, int QUANT>
+cudaError_t launch(const void* q, const void* kv8, const void* kv_scale,
                    const void* labels, const void* q_self,
                    const void* q_upper, const void* ext, void* out,
                    void* lse, int batch, int G, int N, int H, int S,
-                   int n_keys, cudaStream_t stream,
-                   const void* kv8 = nullptr, const void* kv_scale = nullptr) {
-  constexpr int smem = QUANT ? Layout<DH>::BYTES_Q8 : Layout<DH>::BYTES;
-  auto kernel = attn_fwd_kernel<DH, CA, STATS, EXT, QUANT>;
+                   int n_keys, cudaStream_t stream) {
+  constexpr int smem = Layout<DH>::BYTES_Q8;
+  auto kernel = attn_fwd_kernel<DH, STATS, EXT, QUANT>;
   // Above 48 KB a block's shared memory must be opted into. The attribute
   // belongs to the current device, so it is set on every launch (cheap, and
   // right whichever device and thread launches).
@@ -418,10 +376,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   dim3 grid((N + kBQ - 1) / kBQ, H, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const uint8_t*>(kv8), static_cast<const float*>(kv_scale),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(kv8),
+      static_cast<const float*>(kv_scale),
       static_cast<const int32_t*>(labels),
       static_cast<const int32_t*>(q_self),
       static_cast<const int32_t*>(q_upper),
@@ -540,51 +496,11 @@ ca_fwd_2h_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" {
 
-// Returns 0 on success, else the cudaError_t of the refused launch.
-int must3r_sa_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                       int B, int N, int H, int Dh, void* stream) {
-  if (Dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<64, false>(
-      q, k, v, nullptr, nullptr, nullptr, nullptr, out, nullptr, B, 1, N, H,
-      0, N, static_cast<cudaStream_t>(stream)));
-}
-
-int must3r_ca_fwd_bf16(const void* q, const void* kv, const void* labels,
-                       const void* q_self, const void* q_upper, void* out,
-                       int B, int G, int N, int H, int Dh, int S, int kv_len,
-                       void* stream) {
-  if (Dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<64, true>(
-      q, kv, nullptr, labels, q_self, q_upper, nullptr, out, nullptr, B * G,
-      G, N, H, S, kv_len, static_cast<cudaStream_t>(stream)));
-}
-
-// The training variants of K2: lse (fp32 [B, G, H, N]) written when not
-// null, ext (bool [B, G, S]) read when not null.
-int must3r_ca_fwd_train_bf16(const void* q, const void* kv, const void* labels,
-                             const void* q_self, const void* q_upper,
-                             const void* ext, void* out, void* lse, int B,
-                             int G, int N, int H, int Dh, int S, int kv_len,
-                             void* stream) {
-  if (Dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int bg = B * G;
-#define MUST3R_CA_FWD(STATS, EXT)                                           \
-  launch<64, true, STATS, EXT>(q, kv, nullptr, labels, q_self, q_upper, ext, \
-                               out, lse, bg, G, N, H, S, kv_len, st)
-  cudaError_t err;
-  if (lse != nullptr)
-    err = ext != nullptr ? MUST3R_CA_FWD(true, true) : MUST3R_CA_FWD(true, false);
-  else
-    err = ext != nullptr ? MUST3R_CA_FWD(false, true)
-                         : MUST3R_CA_FWD(false, false);
-#undef MUST3R_CA_FWD
-  return static_cast<int>(err);
-}
+// Each returns 0 on success, else the cudaError_t of the refused launch.
 
 // K2(d): the 8-bit cache read. kv8 [B, H, S, 2*Dh] codes (fmt 1 = int8,
-// 2 = fp8 e4m3), kv_scale [B, H, 2, S] fp32; lse and ext as above (each
-// optional).
+// 2 = fp8 e4m3), kv_scale [B, H, 2, S] fp32; lse (fp32 [B, G, H, N])
+// written when not null, ext (bool [B, G, S]) read when not null.
 int must3r_ca_fwd_q8(const void* q, const void* kv8, const void* kv_scale,
                      const void* labels, const void* q_self,
                      const void* q_upper, const void* ext, void* out,
@@ -595,9 +511,8 @@ int must3r_ca_fwd_q8(const void* q, const void* kv8, const void* kv_scale,
   auto st = static_cast<cudaStream_t>(stream);
   const int bg = B * G;
 #define MUST3R_CA_Q8(STATS, EXT, FMT)                                        \
-  launch<64, true, STATS, EXT, FMT>(q, nullptr, nullptr, labels, q_self,     \
-                                    q_upper, ext, out, lse, bg, G, N, H, S,  \
-                                    kv_len, st, kv8, kv_scale)
+  launch<64, STATS, EXT, FMT>(q, kv8, kv_scale, labels, q_self, q_upper,   \
+                              ext, out, lse, bg, G, N, H, S, kv_len, st)
 #define MUST3R_CA_Q8_FLAGS(FMT)                                              \
   (lse != nullptr                                                            \
        ? (ext != nullptr ? MUST3R_CA_Q8(true, true, FMT)                     \

@@ -1,5 +1,6 @@
 // Shared constants and helpers of the port's attention kernels
-// (attention.cu: forwards; attention_bwd.cu: CA backwards).
+// (attention_sm90.cu: K1, K2; attention.cu: K2(d), K6; attention_bwd.cu: CA
+// backwards).
 #pragma once
 
 #include <cuda_bf16.h>

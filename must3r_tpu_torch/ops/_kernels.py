@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-Each source (``attention.cu``: the forwards K1, K2 and K2(d), the 8-bit
-cache read, and K6, two heads per block; ``attention_bwd.cu``: the CA
-backwards K3, K4, K5; ``probe_fp8.cu``: the fp8 probe kernels;
-``ln_matmul.cu``: K7, LayerNorm + matmul) is compiled with ``nvcc`` at
+Each source (``attention_sm90.cu``: the forwards K1 and K2, one TMA +
+wgmma program; ``attention.cu``: the WMMA program of K2(d), the 8-bit cache
+read, and K6, two heads per block; ``attention_bwd.cu``: the CA backwards
+K3, K4, K5; ``probe_fp8.cu``: the fp8 probe kernels; ``ln_matmul.cu``: K7,
+LayerNorm + matmul) is compiled with ``nvcc`` at
 first use into its own shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), keyed on a hash of the source,
 the shared header and the flags, under ``build/kernels/`` at the root of
@@ -30,8 +31,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu",
-           _CSRC / "probe_fp8.cu", _CSRC / "ln_matmul.cu")
+SOURCES = (_CSRC / "attention_sm90.cu", _CSRC / "attention.cu",
+           _CSRC / "attention_bwd.cu", _CSRC / "probe_fp8.cu",
+           _CSRC / "ln_matmul.cu")
 HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,10 +103,10 @@ def _load(stem: str) -> ctypes.CDLL:
     """The library of ``csrc/<stem>.cu`` (every source is built first)."""
     if not _libs:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fwd, bwd, fp8, ln = (ctypes.CDLL(str(p)) for p in build())
-        fwd.must3r_sa_fwd_bf16.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        fwd.must3r_ca_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-        fwd.must3r_ca_fwd_train_bf16.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        sm90, fwd, bwd, fp8, ln = (ctypes.CDLL(str(p)) for p in build())
+        sm90.must3r_sa_fwd_bf16.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        sm90.must3r_ca_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+        sm90.must3r_ca_fwd_train_bf16.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
         fwd.must3r_ca_fwd_q8.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
         fwd.must3r_ca_fwd_2h_bf16.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         bwd.must3r_ca_bwd_dq_bf16.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
@@ -112,15 +114,15 @@ def _load(stem: str) -> ctypes.CDLL:
         fp8.must3r_fp8_to_bf16_x2.argtypes = [ptr] * 2 + [i32] + [ptr]
         fp8.must3r_fp8_dequant_dot.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
         ln.must3r_ln_matmul_bf16.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
-        for fn in (fwd.must3r_sa_fwd_bf16, fwd.must3r_ca_fwd_bf16,
-                   fwd.must3r_ca_fwd_train_bf16, fwd.must3r_ca_fwd_q8,
+        for fn in (sm90.must3r_sa_fwd_bf16, sm90.must3r_ca_fwd_bf16,
+                   sm90.must3r_ca_fwd_train_bf16, fwd.must3r_ca_fwd_q8,
                    fwd.must3r_ca_fwd_2h_bf16,
                    bwd.must3r_ca_bwd_dq_bf16, bwd.must3r_ca_bwd_dkv_bf16,
                    fp8.must3r_fp8_to_bf16_x2, fp8.must3r_fp8_dequant_dot,
                    ln.must3r_ln_matmul_bf16):
             fn.restype = i32
-        _libs.update(attention=fwd, attention_bwd=bwd, probe_fp8=fp8,
-                     ln_matmul=ln)
+        _libs.update(attention_sm90=sm90, attention=fwd, attention_bwd=bwd,
+                     probe_fp8=fp8, ln_matmul=ln)
     return _libs[stem]
 
 
@@ -148,7 +150,13 @@ def _raise_on(err: int, what: str):
 
 
 def sa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K1: full self-attention, q/k/v [B, N, H, Dh] bf16 -> [B, N, H, Dh]."""
+    """K1: full self-attention, q/k/v [B, N, H, Dh] bf16 -> [B, N, H, Dh].
+
+    Runs the TMA + wgmma program of ``csrc/attention_sm90.cu``, which picks
+    the query rows per block from the grid: 192 (three consumer warpgroups,
+    one block an SM) when ceil(N / 192) * H * B >= 2 * the SM count, else 64
+    (one warpgroup, two blocks an SM), so that a small grid still fills the
+    card. The same rule holds for :func:`ca_fwd` with B * G images."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, torch.bfloat16, 4, q.device)
     if k.shape != q.shape or v.shape != q.shape:
@@ -162,7 +170,7 @@ def sa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = _load("attention")
+    lib = _load("attention_sm90")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.must3r_sa_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -240,7 +248,10 @@ def ca_fwd(q: torch.Tensor, kv: torch.Tensor, labels: torch.Tensor,
     int (keys at or past it are never read); ext [B, G, S] bool (True
     blocks the key for that image) or None. Returns out [B, G, N, H, Dh],
     and with ``return_stats`` also the fp32 row log-sum-exp [B, G, H, N]
-    (+1e30 for a row that attends nothing)."""
+    (+1e30 for a row that attends nothing). Every variant runs the program
+    of :func:`sa_fwd`, with its rule for the rows per block (192 when
+    ceil(N / 192) * H * B * G >= 2 * the SM count, else 64); a key tile that
+    no row attends is skipped."""
     b, g, n, h, dh, s_cap, kv_len = _check_ca(
         "ca_fwd", q, kv, labels, q_self, q_upper, kv_len, ext)
     out = torch.empty_like(q)
@@ -249,12 +260,12 @@ def ca_fwd(q: torch.Tensor, kv: torch.Tensor, labels: torch.Tensor,
     if q.numel():
         with torch.cuda.device(q.device):
             if ext is None and not return_stats:
-                err = _load("attention").must3r_ca_fwd_bf16(
+                err = _load("attention_sm90").must3r_ca_fwd_bf16(
                     q.data_ptr(), kv.data_ptr(), labels.data_ptr(),
                     q_self.data_ptr(), q_upper.data_ptr(), out.data_ptr(),
                     b, g, n, h, dh, s_cap, kv_len, _stream(q.device))
             else:
-                err = _load("attention").must3r_ca_fwd_train_bf16(
+                err = _load("attention_sm90").must3r_ca_fwd_train_bf16(
                     q.data_ptr(), kv.data_ptr(), labels.data_ptr(),
                     q_self.data_ptr(), q_upper.data_ptr(), _ptr(ext),
                     out.data_ptr(), _ptr(lse), b, g, n, h, dh, s_cap, kv_len,

@@ -16,7 +16,9 @@ once with the plain attention (``"plain"``):
    union of the intervals of every device activity (kernels, copies,
    memsets) in that request; the idle share is 1 - device time / the host
    time of the same traced request. The profiler's own host cost inflates
-   that host time, so the untraced median is printed beside it.
+   that host time, so the untraced median is printed beside it. The device
+   time of each group of kernels (the port's attention kernels by name,
+   matrix products, everything else) is summed.
 
 The top device kernels of each traced request go to ``--out``; the last
 line of standard output is one JSON object with every number above.
@@ -41,6 +43,14 @@ from must3r_tpu_torch.engine.inference import (InferenceCore,
                                                postprocess, view_positions)
 
 IMPLS = {"kernel": None, "plain": "plain"}
+# the port's attention kernels by (demangled) name: K1, K2 (the TMA + wgmma
+# program), K2(d), K6 (the WMMA program), K3, K4 / K5
+KERNEL_GROUPS = ("attn_fwd_sm90<false", "attn_fwd_sm90<true",
+                 "attn_fwd_kernel<64", "ca_fwd_2h_kernel", "ca_bwd_dq_kernel",
+                 "ca_bwd_kv_kernel<64, false, false",
+                 "ca_bwd_kv_kernel<64, true, false",
+                 "ca_bwd_kv_kernel<64, false, true",
+                 "ca_bwd_kv_kernel<64, true, true")
 N_VIEWS = 10
 HW = (384, 512)
 PAIRS = 10
@@ -108,6 +118,18 @@ def spread(runs: dict, imgs, pairs: int) -> dict:
     return out
 
 
+def kernel_group(name: str) -> str:
+    """The group of a device activity: one of KERNEL_GROUPS, "matrix
+    products" or "other"."""
+    for g in KERNEL_GROUPS:
+        if g in name:
+            return g
+    if "gemm" in name or "Gemm" in name or "cutlass" in name or \
+            "sm90_xmma" in name or "nvjet" in name:
+        return "matrix products"
+    return "other"
+
+
 def _union_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for a, b in sorted(intervals):
@@ -134,15 +156,20 @@ def traced(run, imgs, top: int = 15):
     busy_ms = _union_us((e.time_range.start, e.time_range.end)
                         for e in dev_events) / 1e3
     per_name = defaultdict(lambda: [0.0, 0])
+    groups = defaultdict(lambda: [0.0, 0])
     for e in dev_events:
-        per_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        per_name[e.name][1] += 1
+        ms = e.time_range.elapsed_us() / 1e3
+        for acc in (per_name[e.name], groups[kernel_group(e.name)]):
+            acc[0] += ms
+            acc[1] += 1
     rows = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
     table = "\n".join(f"{ms:10.3f} ms {n:6d}x  {name[:100]}"
                       for name, (ms, n) in rows)
     summary = {"host_ms": host_ms, "device_busy_ms": busy_ms,
                "device_events": len(dev_events),
-               "idle_share": 1.0 - busy_ms / host_ms}
+               "idle_share": 1.0 - busy_ms / host_ms,
+               "device_ms_launches_by_group": dict(sorted(
+                   groups.items(), key=lambda kv: -kv[1][0]))}
     return summary, table
 
 

@@ -39,7 +39,7 @@ from must3r_tpu_torch.engine.inference import view_positions
 from must3r_tpu_torch.engine.train import (TrainSettings, cast_frozen_params,
                                            cosine_schedule, make_optimizer,
                                            make_train_step, trainable_subset)
-from must3r_tpu_torch.tools.profile_offline import _union_us
+from must3r_tpu_torch.tools.profile_offline import _union_us, kernel_group
 
 SEED = 0
 CONFIGS = {
@@ -49,21 +49,6 @@ CONFIGS = {
                 ts=TrainSettings(mem_batches=(5, 5, 5, 5), n_render=2,
                                  dropout_p=0.1), render=[18, 19]),
 }
-KERNEL_GROUPS = ("attn_fwd_kernel<64, false", "attn_fwd_kernel<64, true",
-                 "ca_bwd_dq_kernel", "ca_bwd_kv_kernel<64, false, false",
-                 "ca_bwd_kv_kernel<64, true, false",
-                 "ca_bwd_kv_kernel<64, false, true",
-                 "ca_bwd_kv_kernel<64, true, true")
-
-
-def _group(name: str) -> str:
-    for g in KERNEL_GROUPS:
-        if g in name:
-            return g
-    if "gemm" in name or "Gemm" in name or "cutlass" in name or \
-            "sm90_xmma" in name or "nvjet" in name:
-        return "matrix products"
-    return "other"
 
 
 def random_train_batch(dev, gen, b, v, hw, patch, render):
@@ -123,7 +108,7 @@ def profile_config(name: str, dev, top: int = 20):
     per_name = defaultdict(lambda: [0.0, 0])
     for e in events:
         ms = e.time_range.elapsed_us() / 1e3
-        groups[_group(e.name)] += ms
+        groups[kernel_group(e.name)] += ms
         per_name[e.name][0] += ms
         per_name[e.name][1] += 1
     rows = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]

@@ -30,6 +30,7 @@ from must3r_tpu_torch.tools.parity import RMSE_REL, kernel_error
 
 DH = 64
 INT32_MAX = tatt.INT32_MAX
+LSE_TOL = 1e-2
 
 
 @pytest.fixture
@@ -56,8 +57,12 @@ def _assert_matches_plain(got, want, ulp_allowance=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,h", [(2, 196, 12), (1, 768, 16), (3, 65, 2),
-                                   (1, 1, 1)])
+@pytest.mark.parametrize("b,n,h", [
+    (2, 196, 12), (1, 768, 16), (3, 65, 2), (1, 1, 1),
+    # ragged N with images next to each other in memory (a tile past N must
+    # not read the next image's rows), 12 and 16 heads, both block sizes:
+    # 192 rows, with warpgroups wholly past N, for the first and third
+    (12, 196, 12), (1, 65, 16), (17, 65, 16), (2, 196, 16)])
 def test_sa_kernel_matches_plain(dev, b, n, h):
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (_randn(gen, dev, b, n, h, DH) for _ in range(3))
@@ -175,11 +180,109 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev, bad):
 
 
 # ---------------------------------------------------------------------------
-# Training variants: K2 with LSE / dropout mask, K3, K4, K5
+# The TMA + wgmma program of K1 and K2 (csrc/attention_sm90.cu) at its edges
 # ---------------------------------------------------------------------------
 
-LSE_TOL = 1e-2
+def test_profile_groups_name_the_kernels_of_each_program():
+    """The profile tools sum device time by kernel name: K1 and K2 run the
+    TMA + wgmma program, K2(d) the WMMA one (runs on the CPU)."""
+    from must3r_tpu_torch.tools.profile_offline import kernel_group
 
+    for name, group in [
+            ("void (anonymous namespace)::attn_fwd_sm90<false, false, false,"
+             " 3>(CUtensorMap_st, ...)", "attn_fwd_sm90<false"),
+            ("void (anonymous namespace)::attn_fwd_sm90<true, true, true, 1>"
+             "(CUtensorMap_st, ...)", "attn_fwd_sm90<true"),
+            ("void (anonymous namespace)::attn_fwd_kernel<64, false, false, 2>"
+             "(...)", "attn_fwd_kernel<64"),
+            ("nvjet_tss_192x192_64x4_2x1_v_bz_coopB_TNN", "matrix products"),
+            ("void at::native::vectorized_elementwise_kernel<8, ...>",
+             "other")]:
+        assert kernel_group(name) == group, name
+
+
+def _poison_past(kv, kv_len):
+    """A copy of kv whose slots at or past kv_len hold NaN, +inf and -inf."""
+    bad = kv.clone()
+    tail = bad[:, :, kv_len:]
+    tail[..., 0::3] = float("nan")
+    tail[..., 1::3] = float("inf")
+    tail[..., 2::3] = -float("inf")
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 65, 1000])
+def test_ca_sm90_slots_past_kv_len_change_nothing(dev, kv_len):
+    """An 8,192-slot layer, every slot labelled: slots at or past kv_len hold
+    NaN and +-inf, and the output and the LSE are bitwise those of the same
+    call with the slots zeroed (the tensor map's key extent is kv_len), with
+    and without STATS / EXT; and they match the plain version."""
+    from must3r_tpu_torch.ops import _kernels
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    s_cap = 8192
+    q = _randn(gen, dev, 1, 2, 100, 12, DH)
+    kv = _randn(gen, dev, 1, 12, s_cap, 2 * DH)
+    kv[:, :, kv_len:] = 0
+    bad = _poison_past(kv, kv_len)
+    lab = _labels(dev, s_cap, s_cap, 250)
+    qs = torch.tensor([[1, -2]], dtype=torch.int32, device=dev)
+    qu = torch.tensor([[INT32_MAX, 3]], dtype=torch.int32, device=dev)
+    ext = torch.rand(1, 2, s_cap, generator=gen, device=dev) < 0.1
+    for e in (None, ext):
+        out, lse = _kernels.ca_fwd(q, kv, lab, qs, qu, kv_len, ext=e,
+                                   return_stats=True)
+        out2, lse2 = _kernels.ca_fwd(q, bad, lab, qs, qu, kv_len, ext=e,
+                                     return_stats=True)
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        if kv_len == 0:
+            assert float(out.abs().max()) == 0.0
+            assert bool((lse == tatt.EMPTY_LSE).all())
+            continue
+        want, want_lse = tatt._ca_plain(q, kv[..., :DH], kv[..., DH:], lab,
+                                        qs, qu, kv_len, e, return_stats=True)
+        _assert_matches_plain(out, want)
+        assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    serving = _kernels.ca_fwd(q, bad, lab, qs, qu, kv_len)
+    assert torch.equal(serving, _kernels.ca_fwd(q, kv, lab, qs, qu, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,h,n", [(2, 1, 12, 150), (1, 2, 16, 150),
+                                     (2, 1, 16, 1700), (1, 2, 12, 2000)])
+@pytest.mark.parametrize("stats,ext_p", [(False, 0.0), (True, 0.15)])
+def test_ca_sm90_per_image_masks(dev, b, g, h, n, stats, ext_p):
+    """B * G = 2 images, each with its own q_self / q_upper (and, for B = 2,
+    its own labels), 12 and 16 heads, STATS and EXT together, both block
+    sizes (the last two cases run 192-row blocks); an image's own slots
+    fill whole key tiles, which are skipped."""
+    from must3r_tpu_torch.ops import _kernels
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    s_cap, kv_len = 1000, 900
+    q = _randn(gen, dev, b, g, n, h, DH)
+    kv = _randn(gen, dev, b, h, s_cap, 2 * DH)
+    lab = torch.cat([_labels(dev, s_cap, kv_len, 128),
+                     _labels(dev, s_cap, kv_len, 64)])[:b].contiguous()
+    qs = torch.tensor([2, 5], dtype=torch.int32, device=dev).reshape(b, g)
+    qu = torch.tensor([INT32_MAX, 6], dtype=torch.int32,
+                      device=dev).reshape(b, g)
+    ext = (torch.rand(b, g, s_cap, generator=gen, device=dev) < ext_p
+           if ext_p else None)
+    got = _kernels.ca_fwd(q, kv, lab, qs, qu, kv_len, ext=ext,
+                          return_stats=stats)
+    want = tatt._ca_plain(q, kv[..., :DH], kv[..., DH:], lab, qs, qu, kv_len,
+                          ext, return_stats=stats)
+    if stats:
+        (got, lse), (want, want_lse) = got, want
+        assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    _assert_matches_plain(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Training variants: K2 with LSE / dropout mask, K3, K4, K5
+# ---------------------------------------------------------------------------
 
 def _train_case(dev, seed, b, g, n, s_cap, kv_len, q_self, q_upper, ext_p):
     gen = torch.Generator(device=dev).manual_seed(seed)
