@@ -20,10 +20,12 @@ non-zero:
      time is printed beside its device time, and its bound beside both.
   B'. The training kernels against their plain versions at the training
      path's shapes (512 and 224): K2 with the LSE and the token-dropout mask
-     (LSE within 1e-2 absolute), K3 + K4 and K5 (dq, dk, dv each within
-     phase B's bounds); an image that attends nothing gets zero gradients,
-     slots past kv_len get dK|dV = 0. Kernel, plain version and
-     ``scaled_dot_product_attention`` (a yardstick only) timed as in B.
+     (LSE within 1e-2 absolute), K3 + K4 (WMMA, ``csrc/attention_bwd.cu``)
+     and K5 (the TMA + wgmma program of ``csrc/attention_bwd_sm90.cu``; dq,
+     dk, dv each within phase B's bounds); an image that attends
+     nothing gets zero gradients, slots past kv_len get dK|dV = 0. Kernel,
+     plain version and ``scaled_dot_product_attention`` (a yardstick only)
+     timed as in B, with the achieved TFLOP/s and share of the bound.
   C. The main path at full width: MUSt3R_512 (ViT-L encoder 24 x 1024,
      ViT-B decoder 12 x 768) with seeded random weights, bf16, 10 views of
      512 x 384 per collection. Three requests: two collections through
@@ -32,12 +34,13 @@ non-zero:
      read just after, and must match the schedule. Outputs must be finite,
      of the expected shapes, with proper rotations, and within 2e-2 relative
      RMSE of the same requests run with the plain attention.
-  B''. K2(d), the 8-bit cache read, against its plain version for int8 and
-     fp8 caches (phase B's bounds): the render and the update of a 10-view
-     collection, a masked step (q_self, q_upper, dropout mask, kv_len < S
-     whose later slots hold the largest codes and scales of 1e30, which must
-     not move the output), a row that attends nothing (= 0), the LSE. The
-     library yardstick is SDPA on the dequantized bf16 cache.
+  B''. K2(d), the 8-bit cache read (the TMA + wgmma program with the
+     producer warpgroup converting the codes), against its plain version for
+     int8 and fp8 caches (phase B's bounds): the render and the update of a
+     10-view collection, a masked step (q_self, q_upper, dropout mask,
+     kv_len < S whose later slots hold the largest codes and scales of 1e30,
+     which must not move the output), a row that attends nothing (= 0), the
+     LSE. The library yardstick is SDPA on the dequantized bf16 cache.
   B'''. The fp8 probe: fp8 -> bf16 conversion exact, the dequant dot within
      fp32 summation noise; its entry point run with counted launches.
   B''''. The microbenchmark kernels: K6 (``ca_fwd_2h``, two heads per block)
@@ -75,7 +78,7 @@ The last three lines are the card's name and power limit, every kernel's
 JSON record (launches summed over the counted runs of C, D, E, the probe
 and the bench tools, device times at one main-path shape each, bound and
 library time) and ``{"ok": true, "device": {...}}``. About two minutes on
-an H100, the build (five sources, one nvcc each, in parallel) included.
+an H100, the build (six sources, one nvcc each, in parallel) included.
 """
 
 import json
@@ -182,7 +185,9 @@ def _compare(name, kernel, plain, results, work, library=None, tag="B",
         f"library{library_label} "
         f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
         f"bound {work['bound_ms']:.4f} ms ({work['bound_by']}: "
-        f"{work['gflop']:.2f} GFLOP, {work['mbytes']:.1f} MB)")
+        f"{work['gflop']:.2f} GFLOP, {work['mbytes']:.1f} MB); achieved "
+        f"{work['gflop'] / ms:.1f} TFLOP/s, {work['bound_ms'] / ms:.1%} of "
+        f"the bound")
     if not e["ok"]:
         raise AssertionError(f"{name}: kernel disagrees with plain: {e}")
     results.append(dict(shape=name, max_abs_err=e["max_abs_err"], ms=ms,
@@ -488,7 +493,8 @@ def phase_train_kernels(dev):
                 f"Python launches {events_ms(fn):.4f})  plain "
                 f"{r['plain_ms']:.4f} ms  library (sdpa backward, dq+dk+dv) "
                 f"{lib_ms:.4f} ms  bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
+                f"({r['bound_by']}); achieved {w['gflop'] / r['ms']:.1f} "
+                f"TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of the bound")
 
     # a query image that attends nothing gets dq = 0 and adds nothing to
     # dK|dV; slots at or past kv_len get dK|dV = 0 exactly
@@ -1308,11 +1314,13 @@ def main():
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    sm90, fwd, bwd, fp8, ln = ("must3r_tpu_torch/csrc/attention_sm90.cu",
-                               "must3r_tpu_torch/csrc/attention.cu",
-                               "must3r_tpu_torch/csrc/attention_bwd.cu",
-                               "must3r_tpu_torch/csrc/probe_fp8.cu",
-                               "must3r_tpu_torch/csrc/ln_matmul.cu")
+    sm90, bwd90, fwd, bwd, fp8, ln = (
+        "must3r_tpu_torch/csrc/attention_sm90.cu",
+        "must3r_tpu_torch/csrc/attention_bwd_sm90.cu",
+        "must3r_tpu_torch/csrc/attention.cu",
+        "must3r_tpu_torch/csrc/attention_bwd.cu",
+        "must3r_tpu_torch/csrc/probe_fp8.cu",
+        "must3r_tpu_torch/csrc/ln_matmul.cu")
     ca_all = ca + train_k["ca_fwd_train"]
     record = {"kernels": [
         entry("sa_fwd", sm90, "must3r_tpu/ops/attention.py:213", sa, 0),
@@ -1322,9 +1330,9 @@ def main():
               train_k["ca_bwd_dq"], 1),
         entry("ca_bwd_dkv", bwd, "must3r_tpu/ops/attention.py:1112",
               train_k["ca_bwd_dkv"], 1),
-        entry("ca_bwd_fused", bwd, "must3r_tpu/ops/attention.py:1335",
+        entry("ca_bwd_fused", bwd90, "must3r_tpu/ops/attention.py:1335",
               train_k["ca_bwd_fused"], 2),
-        entry("ca_fwd_q8", fwd, "must3r_tpu/ops/attention.py:627", q8, 0),
+        entry("ca_fwd_q8", sm90, "must3r_tpu/ops/attention.py:627", q8, 0),
         entry("fp8_to_bf16_x2", fp8, "scripts/probe_fp8.py:19",
               [probe["fp8_to_bf16_x2"]], 0),
         entry("fp8_dequant_dot", fp8, "scripts/probe_fp8.py:41",

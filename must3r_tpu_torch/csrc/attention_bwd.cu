@@ -2,9 +2,9 @@
 // PyTorch port's training path, hand-written for Hopper (sm_90a). bf16
 // inputs, fp32 accumulation and statistics.
 //
-// All three recompute the probabilities from the forward's saved
-// log-sum-exp instead of storing them, with the label predicate (and the
-// token-dropout mask) rebuilt per key:
+// Both recompute the probabilities from the forward's saved log-sum-exp
+// instead of storing them, with the label predicate (and the token-dropout
+// mask) rebuilt per key:
 //
 //   p  = allow(g, j) * exp(q.k_j * scale - lse)
 //   ds = p * (dO.v_j - delta),   delta = rowsum(dO * O) (fp32, computed by
@@ -22,14 +22,8 @@
 //                   cache are summed inside one block with no atomics.
 //                   Output dkv [B, H, S, 2*Dh] bf16 (dk | dv packed as the
 //                   cache); a key at or past kv_len gets exactly 0.
-//   K5 ca_bwd_fused replaces _ca_bwd_fused_pallas: dq and dK|dV in one
-//                   launch. The TPU kernel revisits one dq block across a
-//                   sequential grid; Hopper's blocks run in parallel and in
-//                   no order, so here each block owns one key tile (as K4)
-//                   and adds its share ds.k of every query row's dq into a
-//                   zeroed fp32 buffer with atomicAdd. The order of those
-//                   fp32 sums changes from run to run, so dq is not bitwise
-//                   reproducible (its test tolerance states this).
+// The fused K5 (dq and dK|dV in one launch) is the TMA + wgmma program of
+// attention_bwd_sm90.cu.
 //
 // Inputs: q, dO [B, G, N, H, Dh]; kv [B, H, S, 2*Dh] (one cache layer);
 // labels [B, S] int32; q_self, q_upper [B, G] int32; ext [B, G, S] bool or
@@ -40,10 +34,9 @@
 // Dh (S, dP, and dq or dk|dv) against the forward's 2, on the same bytes,
 // so at the training shapes (768..1536 query rows against 768..3072 keys,
 // Dh 64) they are compute bound on the tensor cores. This first version is
-// the simple WMMA (mma.sync) design of the forward kernels: every score and
-// gradient tile makes a round trip through shared memory, there is no
-// cp.async/TMA pipelining and no wgmma, and K5's dq goes through global
-// atomics. Those are the levers for a later pass.
+// the simple WMMA (mma.sync) design: every score and gradient tile makes a
+// round trip through shared memory, and there is no cp.async/TMA
+// pipelining and no wgmma. Those are the levers for a later pass.
 
 #include <mma.h>
 
@@ -78,8 +71,6 @@ struct BwdLayout {
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                              wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
 using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                               wmma::row_major>;
 using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
@@ -303,10 +294,10 @@ ca_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// K4 (FUSED = false): dk | dv.  K5 (FUSED = true): dk | dv, and dq by atomics.
+// K4: dk | dv
 // ---------------------------------------------------------------------------
 
-template <int DH, bool EXT, bool FUSED>
+template <int DH, bool EXT>
 __global__ void __launch_bounds__(kThreads)
 ca_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ kv,
@@ -318,7 +309,6 @@ ca_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,
                  const float* __restrict__ delta,
                  const __nv_bfloat16* __restrict__ dout,
                  __nv_bfloat16* __restrict__ dkv,
-                 float* __restrict__ dq32,
                  int G, int N, int H, int S, int kv_len, float scale) {
   using L = BwdLayout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -421,41 +411,6 @@ ca_bwd_kv_kernel(const __nv_bfloat16* __restrict__ q,
       __syncwarp();
       accumulate<DH>(dv, sP_w, sDO);            // dv += P^T dO
       accumulate<DH>(dk, sDS_w, sQ);            // dk += dS^T Q
-
-      if constexpr (FUSED) {
-        // dq rows warp*16.. of this query tile += dS (16 x 64 keys) K; dS
-        // is the transpose of the block's dS^T tile, read column-major.
-        __syncthreads();                // every warp's dS^T is written
-        FragC part[DH / 16];
-#pragma unroll
-        for (int nt = 0; nt < DH / 16; ++nt) wmma::fill_fragment(part[nt], 0.f);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          FragAc fa;
-          wmma::load_matrix_sync(fa, sDS + kk * 16 * L::LDP + warp * 16,
-                                 L::LDP);
-#pragma unroll
-          for (int nt = 0; nt < DH / 16; ++nt) {
-            FragBr fb;
-            wmma::load_matrix_sync(fb, sK + kk * 16 * L::LDH + nt * 16,
-                                   L::LDH);
-            wmma::mma_sync(part[nt], fa, fb, part[nt]);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < DH / 16; ++nt)
-          wmma::store_matrix_sync(sS_w + nt * 16, part[nt], L::LDS,
-                                  wmma::mem_row_major);
-        __syncwarp();
-        const int n = i0 + warp * 16 + rr;
-        if (n < N) {
-          const float* src = sS_w + rr * L::LDS + half * (DH / 2);
-          float* dst = dq32 + (((size_t)bz * N + n) * H + h) * DH +
-                       half * (DH / 2);
-#pragma unroll
-          for (int c = 0; c < DH / 2; ++c) atomicAdd(dst + c, src[c] * scale);
-        }
-      }
     }
   }
 
@@ -507,20 +462,16 @@ int must3r_ca_bwd_dq_bf16(const void* q, const void* kv, const void* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq32 null: K4 (dk | dv only). dq32 not null: K5, which adds dq (scaled,
-// fp32) into dq32 [B, G, N, H, Dh]; the caller zeroes it first.
+// K4: dk | dv [B, H, S, 2*Dh] bf16 of one cache layer.
 int must3r_ca_bwd_dkv_bf16(const void* q, const void* kv, const void* labels,
                            const void* q_self, const void* q_upper,
                            const void* ext, const void* lse,
                            const void* delta, const void* dout, void* dkv,
-                           void* dq32, int B, int G, int N, int H, int Dh,
-                           int S, int kv_len, void* stream) {
+                           int B, int G, int N, int H, int Dh, int S,
+                           int kv_len, void* stream) {
   if (Dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const bool has_ext = ext != nullptr, fused = dq32 != nullptr;
-  auto kernel = has_ext ? (fused ? &ca_bwd_kv_kernel<64, true, true>
-                                 : &ca_bwd_kv_kernel<64, true, false>)
-                        : (fused ? &ca_bwd_kv_kernel<64, false, true>
-                                 : &ca_bwd_kv_kernel<64, false, false>);
+  auto kernel = ext != nullptr ? &ca_bwd_kv_kernel<64, true>
+                               : &ca_bwd_kv_kernel<64, false>;
   cudaError_t err = set_smem<64>(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBK - 1) / kBK, H, B);
@@ -534,8 +485,8 @@ int must3r_ca_bwd_dkv_bf16(const void* q, const void* kv, const void* labels,
       static_cast<const uint8_t*>(ext), static_cast<const float*>(lse),
       static_cast<const float*>(delta),
       static_cast<const __nv_bfloat16*>(dout),
-      static_cast<__nv_bfloat16*>(dkv), static_cast<float*>(dq32), G, N, H,
-      S, kv_len, 1.0f / sqrtf(static_cast<float>(Dh)));
+      static_cast<__nv_bfloat16*>(dkv), G, N, H, S, kv_len,
+      1.0f / sqrtf(static_cast<float>(Dh)));
   return static_cast<int>(cudaGetLastError());
 }
 

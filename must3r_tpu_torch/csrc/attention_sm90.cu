@@ -1,6 +1,6 @@
 // The attention forward program of the PyTorch port for Hopper (sm_90a):
-// TMA tile ring, wgmma, scores and output in registers. bf16 in / bf16 out,
-// fp32 softmax statistics, head dim 64.
+// TMA tile ring, wgmma, scores and output in registers. bf16 out, fp32
+// softmax statistics, head dim 64.
 //
 //   K1 sa_fwd : full unmasked self-attention, q/k/v/out [B, N, H, Dh].
 //               Replaces must3r_tpu/ops/attention.py::_sa_pallas.
@@ -16,20 +16,29 @@
 //               attended when
 //                 j < kv_len && lbl >= 0 && lbl != q_self && lbl < q_upper
 //               (&& !ext[g, j] with EXT).
-// The 8-bit read K2(d) and the two-heads microbenchmark K6 stay on the
-// WMMA program of attention.cu.
+//   K2(d) ca_fwd_q8 : the same against an 8-bit layer, template flag QUANT
+//               (int8 or fp8 e4m3), the kv_scales variant of _ca_pallas
+//               (must3r_tpu/ops/attention.py:627-757): kv8 [B, H, S, 128
+//               bytes] codes (64 k codes, then 64 v codes), kv_scale [B, H,
+//               2, S] fp32 per-key k and v scales (deq = code * scale). As
+//               in the TPU kernel the k scale multiplies the score column,
+//               s = (q . k_code) * softmax_scale * kscale[j]; the row max
+//               and sum take p before the v scale, and p * vscale[j] is
+//               rounded to bf16 for P.V. It composes with STATS and EXT.
+// The two-heads microbenchmark K6 stays on the WMMA program of attention.cu.
 //
 // What bounds it: at every main-path shape (N = 768 for SA; 768..7680 query
 // rows against 1536..7680 keys for CA) the work is ~4*Dh flops per (query,
-// key) pair against 2*Dh*2 bytes per key per 64 query rows: operations, on
-// the bf16 tensor cores (PERF.md section 6). At Dh = 64 the exponentials
-// weigh as much: one ex2 per score on the SFU (16 a clock per SM) against
-// 256 flops per score on the tensor cores, so the two have to overlap.
+// key) pair against 2*Dh*2 bytes per key per 64 query rows (K2(d): 2*Dh
+// bytes of codes and 8 of scales): operations, on the bf16 tensor cores
+// (PERF.md section 6). At Dh = 64 the exponentials weigh as much: one ex2
+// per score on the SFU (16 a clock per SM) against 256 flops per score on
+// the tensor cores, so the two have to overlap.
 //
 // The block program. A block owns NC * 64 query rows of one (batch*image,
 // head), NC = 1 or 3: NC consumer warpgroups of 64 rows each, then one
 // producer warpgroup whose first warp does all the loading (setmaxnreg
-// gives its registers to the consumers).
+// gives the rest of its registers to the consumers).
 //   - The producer loads the block's Q tiles once, then walks the key tiles
 //     (64 keys each) through a ring of kStages stages. Per stage it waits
 //     for "empty", computes the tile's allow vector from the labels (the
@@ -37,13 +46,33 @@
 //     stores it beside the stage and, unless the mask is 0 (the tile is
 //     skipped), starts two TMA loads (K and V, 64 x 64 bf16 each, 128-byte
 //     swizzle) that complete on the stage's "full" mbarrier.
+//   - QUANT: the two TMA loads bring 64 x 64 bytes of codes each
+//     (unswizzled) into a ring of code buffers of their own (full ->
+//     code_empty), with the tile's mask. Warps 1..3 of the producer
+//     warpgroup convert them: they wait for the codes and for the bf16
+//     stage to be empty, write the 128-byte-swizzled bf16 K and V tiles
+//     that the consumers' descriptors read (a key the mask does not attend
+//     becomes 0 whatever its code, so a NaN code of a masked slot never
+//     meets P.V), load the tile's 64 k and 64 v scales beside the mask with
+//     plain loads (a TMA map of the fp32 [B, H, 2, S] scales would need
+//     S * 4 to be a multiple of 16), fence the writes for the async proxy,
+//     release the codes and arrive on "converted", which the consumers
+//     wait for instead of "full". The codes are released as soon as they
+//     are read, so TMA runs ahead of the conversion while the consumers
+//     still hold their stages. A skipped tile is not converted, but passes
+//     both rings. Both conversions are exact (int8: one byte permute builds
+//     the float 2^23 + code + 128, one FADD takes 2^23 + 128 off, then
+//     bf16; e4m3 -> f16x2 by cvt -> float -> bf16). The k scale is one
+//     FMUL per score column, the v scale one on P before it becomes the
+//     bf16 A fragment; a masked key's p is 0 by a select, so its scales
+//     (NaN, inf, 1e30) are never used.
 //   - Tensor maps are encoded on the host per launch
 //     (cuTensorMapEncodeTiled, looked up in libcuda at run time with
 //     cudaGetDriverEntryPoint: no -lcuda). q/k/v of SA and q of CA are 4-D
 //     maps (Dh, H, N, B*G): a tile past N is zero-filled and never reads the
 //     next image's rows. The CA layer [B, H, S, 2*Dh] is one map whose key
-//     extent is kv_len, not S; K is the box at feature 0 and V the box at
-//     feature 64, so slots at or past kv_len arrive as zeros whatever they
+//     extent is kv_len, not S; K is the box at feature (or byte) 0 and V the
+//     box at 64, so slots at or past kv_len arrive as zeros whatever they
 //     hold (a NaN there would otherwise become NaN through 0 * NaN in P.V).
 //   - A consumer warpgroup computes S = Q K^T with four
 //     wgmma.m64n64k16.f32.bf16.bf16 from shared-memory descriptors (both
@@ -64,26 +93,28 @@
 //     pending P V, so that no stage stays held while the ring comes round.
 //
 // Tiles, stages, shared memory: 64 keys a tile, kStages = 4; per block NC *
-// 8 KB of Q + 4 * 16 KB of K/V + masks and barriers, on a 1 KB alignment:
-// 75,776 bytes (NC = 1) / 92,160 (NC = 3) of dynamic shared memory. Blocks
-// per SM: 2 of 256 threads (NC = 1) or 1 of 512 (NC = 3), by
+// 8 KB of Q + 4 * 16 KB of K/V (QUANT: + 4 * 8 KB of codes + 4 * 512 bytes
+// of scales) + masks and barriers, on a 1 KB alignment: 75,776 bytes (NC =
+// 1) / 92,160 (NC = 3) of dynamic shared memory; QUANT 110,592 / 126,976.
+// Blocks per SM: 2 of 256 threads (NC = 1) or 1 of 512 (NC = 3), by
 // __launch_bounds__. Registers (-Xptxas -v, written to
-// build/kernels/libattention_sm90_*.log): 128 a thread at entry, the launch
-// bound's, then setmaxnreg 24 for the producer and 232 (NC = 1) / 160
-// (NC = 3) for the consumers; no spills. The launch chooses NC from the
-// grid (see launch()).
+// build/kernels/libattention_sm90_*.log): 128 a thread, the launch bound's,
+// which is what ptxas allocates every warp's code within; setmaxnreg then
+// gives the producer 24 (QUANT: 56, for the converters) and the consumers
+// the rest. The launch chooses NC from the grid (see launch()).
 //
 // Semantics kept from the WMMA program: a masked key's probability is
 // forced to 0 (not exp(-1e30 - m)), so a query row with no attended key
 // (every label masked, or kv_len == 0) returns 0, and its LSE is kEmptyLse
 // (+1e30). The Pallas kernel returns the mean of V there (ROADMAP queue C).
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder: see encoder())
-#include <cuda_runtime.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 using namespace must3r;
+using namespace must3r::sm90;
 
 namespace {
 
@@ -93,174 +124,87 @@ constexpr int kKeys = 64;                   // keys per tile
 constexpr int kStages = 4;
 constexpr int kWG = 128;                    // threads per warpgroup
 constexpr int kTileBytes = 64 * kDh * 2;    // one 64 x 64 bf16 tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kProducerRegs = 24;
+constexpr int kCodeBytes = 64 * kDh;        // one 64 x 64 tile of 8-bit codes
+// QUANT: the format of an 8-bit layer (K2(d)); 0 is a bf16 layer
+constexpr int kQ8Int8 = 1;
+constexpr int kQ8Fp8 = 2;
+constexpr int kConverters = 3 * 32;         // warps 1..3 of the producer
 
-// Blocks per SM and the consumers' registers after setmaxnreg: the
-// producer's 24 and the consumers' counts stay within what the launch bound
-// gives the block (65536 / blocks per SM; 128 a thread either way).
-template <int NC>
+// Blocks per SM and the registers after setmaxnreg: the producer's and the
+// consumers' counts stay within what the launch bound gives the block
+// (65536 / blocks per SM; 128 a thread either way, which is also what ptxas
+// allocates within). With QUANT the producer warpgroup's spare warps
+// convert codes, and keep 56 a thread for it.
+template <int NC, int QUANT>
 struct Config {
   static constexpr int kThreads = (NC + 1) * kWG;
   static constexpr int kMinBlocks = NC == 1 ? 2 : 1;
-  static constexpr int kConsumerRegs = NC == 1 ? 232 : 160;
+  static constexpr int kProducerRegs = QUANT ? 56 : 24;
+  static constexpr int kConsumerRegs =
+      NC == 1 ? (QUANT ? 200 : 232) : (QUANT ? 152 : 160);
   static_assert(NC == 1 || NC == 3, "one or three consumer warpgroups");
   static_assert(kProducerRegs * kWG + NC * kWG * kConsumerRegs <=
                     65536 / kMinBlocks,
                 "setmaxnreg must stay within the block's registers");
 };
 
-template <int NC>
+template <int NC, int QUANT>
 struct Smem {
+  static constexpr int kCodeStages = QUANT ? kStages : 1;
   // 1 KB alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes,
   // and the wgmma descriptors assume tiles start on that period
   alignas(1024) __nv_bfloat16 q[NC][kRows * kDh];
   alignas(1024) __nv_bfloat16 k[kStages][kKeys * kDh];
   alignas(1024) __nv_bfloat16 v[kStages][kKeys * kDh];
+  // QUANT: a tile's codes as TMA wrote them (64 keys x 64 bytes, K and V)
+  // in a ring of their own, with the tile's mask; the bf16 stage's k and v
+  // scales, in the order the consumers read them: column 8j + 2 * quad + e
+  // has its k scale at (4j + quad) * 4 + e and its v scale 2 further, so a
+  // thread reads both scales of its column pair in one 16-byte load
+  alignas(128) uint8_t kc[kCodeStages][QUANT ? kCodeBytes : 16];
+  alignas(128) uint8_t vc[kCodeStages][QUANT ? kCodeBytes : 16];
+  alignas(16) float scl[kCodeStages][QUANT ? 2 * kKeys : 4];
+  uint64_t code_mask[kCodeStages];
+  uint64_t code_empty[kCodeStages];         // QUANT: the codes were read
   uint64_t mask[kStages];                   // bit j: key j0 + j attended
-  uint64_t full[kStages];
+  uint64_t full[kStages];                   // (QUANT: the codes arrived)
+  uint64_t conv[kStages];                   // QUANT: the stage is bf16
   uint64_t empty[kStages];
   uint64_t q_full;
 };
 
-// --- mbarrier and TMA -----------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the barrier's phase with this parity has completed. A wait
-// that never ends traps (a launch error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries > (1u << 26)) __trap();
+// 8 codes (8 bytes) -> 8 bf16 (16 bytes); both conversions are exact: an
+// int8 through float (|code| <= 128 fits bf16's 8-bit significand), an
+// e4m3 through f16x2 (cvt) and float (3 mantissa bits, a narrower exponent
+// range than bf16's). The int8 path builds the float 2^23 + (code + 128)
+// with one byte permute and subtracts 2^23 + 128, instead of an I2F a code.
+template <int QUANT>
+__device__ __forceinline__ uint4 codes8_to_bf16(uint2 raw) {
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t word = e < 2 ? raw.x : raw.y;
+    float lo, hi;
+    if constexpr (QUANT == kQ8Int8) {
+      const uint32_t biased = word ^ 0x80808080u;     // code + 128, per byte
+      const uint32_t sel = 0x7650u + 2 * (e & 1);
+      lo = __uint_as_float(__byte_perm(biased, 0x4B000000u, sel)) -
+           8388736.f;
+      hi = __uint_as_float(__byte_perm(biased, 0x4B000000u, sel + 1)) -
+           8388736.f;
+    } else {
+      const uint32_t pair = (word >> (16 * (e & 1))) & 0xFFFFu;
+      const __half2_raw h2 = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(pair), __NV_E4M3);
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+      lo = f.x;
+      hi = f.y;
+    }
+    // the bf16 pair is the high halves of the two floats: exact, since
+    // their low 16 bits are 0 (at most 8 significant bits)
+    w[e] = __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
   }
-}
-
-// One box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// --- wgmma ----------------------------------------------------------------
-
-// Descriptor of a 64-row tile of 128-byte rows written by TMA with the
-// 128-byte swizzle: SBO = 1024 bytes between 8-row groups; LBO unused (K-
-// major swizzled operands, and an MN-major one exactly 64 wide).
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads of an accumulator above the wait,
-// and the registers of an A operand from being reused before it.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
-}
-
-#define MUST3R_D32                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define MUST3R_D32_OPS(d)                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
-
-// d (+)= A B, A and B both K-major in shared memory; scale_d = 0 overwrites.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
-                                         uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MUST3R_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : MUST3R_D32_OPS(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d += A B, A (bf16 pairs) in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MUST3R_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MUST3R_D32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // The online softmax of a thread's two rows (registers 4j + 2i + e hold row
@@ -322,45 +266,53 @@ struct Softmax {
 // CA == false: q/k/v maps are [B, N, H, Dh], keys = N, every key below N is
 //   attended. CA == true: k/v maps are both the packed layer [B, H, kv_len,
 //   2*Dh] (V at feature 64), keys = kv_len, the label predicate decides.
+//   QUANT != 0: that layer holds 8-bit codes (the map is UINT8, unswizzled,
+//   V at byte 64) and kv_scale [B, H, 2, S] its per-key k and v scales.
 // Accumulator register d[4j + 2i + e] of a thread holds row
 // 16 * warp + lane / 4 + 8i and column 8j + 2 * (lane % 4) + e.
-template <bool CA, bool STATS, bool EXT, int NC>
-__global__ void __launch_bounds__(Config<NC>::kThreads,
-                                  Config<NC>::kMinBlocks)
+template <bool CA, bool STATS, bool EXT, int QUANT, int NC>
+__global__ void __launch_bounds__(Config<NC, QUANT>::kThreads,
+                                  Config<NC, QUANT>::kMinBlocks)
 attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
+              const float* __restrict__ kv_scale,
               const int32_t* __restrict__ labels,
               const int32_t* __restrict__ q_self,
               const int32_t* __restrict__ q_upper,
               const uint8_t* __restrict__ ext,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int G,
               int N, int H, int S, int n_keys, float scale) {
+  using C = Config<NC, QUANT>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  Smem<NC>& sm = *reinterpret_cast<Smem<NC>*>(smem_raw + pad);
+  Smem<NC, QUANT>& sm = *reinterpret_cast<Smem<NC, QUANT>*>(smem_raw + pad);
 
   const int wg = threadIdx.x / kWG;
   const int q0 = blockIdx.x * (NC * kRows);
   const int h = blockIdx.y;
   const int bz = blockIdx.z;                // batch * G + image
+  const int b = CA ? bz / G : bz;
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.full[s], 1);
+      if (QUANT) {
+        mbar_init(&sm.conv[s], kConverters);
+        mbar_init(&sm.code_empty[s], kConverters);
+      }
       mbar_init(&sm.empty[s], NC * kWG);
     }
     mbar_init(&sm.q_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == NC) {
-    // ---------------- producer warpgroup: one warp loads ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        kProducerRegs));
+    // ------- producer warpgroup: warp 0 loads, with QUANT 1..3 convert -------
+    regs_dec<C::kProducerRegs>();
     const int warp = (threadIdx.x % kWG) / 32;
     const int lane = threadIdx.x % 32;
     if (warp == 0) {
@@ -370,7 +322,6 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         for (int c = 0; c < NC; ++c)
           tma_load_4d(sm.q[c], &qmap, &sm.q_full, 0, h, q0 + c * kRows, bz);
       }
-      const int b = CA ? bz / G : bz;
       const int qs = CA ? q_self[bz] : 0;
       const int qu = CA ? q_upper[bz] : 0;
       int stage = 0;
@@ -388,17 +339,24 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         }
         const uint32_t lo = __ballot_sync(0xffffffffu, ok[0]);
         const uint32_t hi = __ballot_sync(0xffffffffu, ok[1]);
-        mbar_wait(&sm.empty[stage], phase ^ 1);
+        mbar_wait(QUANT ? &sm.code_empty[stage] : &sm.empty[stage],
+                  phase ^ 1);
         if (lane == 0) {
           const uint64_t mask = lo | (static_cast<uint64_t>(hi) << 32);
-          sm.mask[stage] = mask;
+          (QUANT ? sm.code_mask : sm.mask)[stage] = mask;
           if (mask != 0) {
-            mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
-            if (CA) {
+            if constexpr (QUANT != 0) {
+              mbar_expect_tx(&sm.full[stage], 2 * kCodeBytes);
+              tma_load_4d(sm.kc[stage], &kmap, &sm.full[stage], 0, j0, h, b);
+              tma_load_4d(sm.vc[stage], &vmap, &sm.full[stage], kDh, j0, h,
+                          b);
+            } else if constexpr (CA) {
+              mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
               tma_load_4d(sm.k[stage], &kmap, &sm.full[stage], 0, j0, h, b);
               tma_load_4d(sm.v[stage], &vmap, &sm.full[stage], kDh, j0, h,
                           b);
             } else {
+              mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
               tma_load_4d(sm.k[stage], &kmap, &sm.full[stage], 0, h, j0, b);
               tma_load_4d(sm.v[stage], &vmap, &sm.full[stage], 0, h, j0, b);
             }
@@ -412,11 +370,61 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
           phase ^= 1;
         }
       }
+    } else if constexpr (QUANT != 0) {
+      // Converters: each tile's codes -> the 128-byte-swizzled bf16 K and V
+      // tiles that the consumers' descriptors read (a key that the mask
+      // does not attend becomes 0, whatever its code), with the tile's
+      // mask and scales beside them. The codes have a ring of their own,
+      // released as soon as they are read, so TMA runs ahead of the
+      // conversion while the consumers still hold bf16 stages. A skipped
+      // tile is not converted; its stages are passed on all the same.
+      const int ct = threadIdx.x % kWG - 32;
+      const float* ksc = kv_scale + (size_t)(b * H + h) * 2 * S;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(&sm.full[stage], phase);
+        mbar_wait(&sm.empty[stage], phase ^ 1);
+        const uint64_t mask = sm.code_mask[stage];
+        if (ct == 0) sm.mask[stage] = mask;
+        if (mask != 0) {
+          if (ct < kKeys) {
+            const int j = t * kKeys + ct;
+            float* dst = &sm.scl[stage][(4 * (ct >> 3) + ((ct & 7) >> 1)) * 4 +
+                                        (ct & 1)];
+            dst[0] = j < n_keys ? ksc[j] : 0.f;
+            dst[2] = j < n_keys ? ksc[S + j] : 0.f;
+          }
+#pragma unroll 2
+          for (int u = ct; u < kKeys * 8; u += kConverters) {
+            const int r = u >> 3;
+            const int c = u & 7;
+            uint4 kb = make_uint4(0u, 0u, 0u, 0u), vb = kb;
+            if ((mask >> r) & 1) {
+              kb = codes8_to_bf16<QUANT>(*reinterpret_cast<const uint2*>(
+                  sm.kc[stage] + r * kDh + c * 8));
+              vb = codes8_to_bf16<QUANT>(*reinterpret_cast<const uint2*>(
+                  sm.vc[stage] + r * kDh + c * 8));
+            }
+            const int off = sw128_offset(r, c);
+            *reinterpret_cast<uint4*>(
+                reinterpret_cast<uint8_t*>(sm.k[stage]) + off) = kb;
+            *reinterpret_cast<uint4*>(
+                reinterpret_cast<uint8_t*>(sm.v[stage]) + off) = vb;
+          }
+          fence_proxy_async();              // the tiles are wgmma operands
+        }
+        mbar_arrive(&sm.code_empty[stage]);
+        mbar_arrive(&sm.conv[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
     }
   } else {
     // ---------------- consumer warpgroup wg: 64 query rows ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-        Config<NC>::kConsumerRegs));
+    regs_inc<C::kConsumerRegs>();
     const int t = threadIdx.x % kWG;
     const int warp = t / 32;
     const int lane = t % 32;
@@ -450,7 +458,7 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = 0; tile < n_tiles; ++tile) {
-      mbar_wait(&sm.full[stage], phase);
+      mbar_wait(QUANT ? &sm.conv[stage] : &sm.full[stage], phase);
       const uint64_t mask = sm.mask[stage];   // uniform across the block
       if (mask != 0) {
         // S = Q K^T (4 steps of 16 features, 32 bytes along a row), and
@@ -477,20 +485,50 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
           wgmma_wait<0>();
         }
         reg_fence(s);
-        if (mask == ~0ull)
+        float2 vsc[QUANT ? 8 : 1];            // QUANT: the v scales
+        if constexpr (QUANT != 0) {
+          // the k scale multiplies the score column (one FMUL a score); a
+          // masked key's scale may be anything, and its score is not used
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                &sm.scl[stage][(4 * j + quad) * 4]);
+            vsc[j] = make_float2(kv.z, kv.w);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              s[4 * j + 2 * i] *= kv.x;
+              s[4 * j + 2 * i + 1] *= kv.y;
+            }
+          }
+        }
+        const bool full = mask == ~0ull;
+        if (full)
           softmax.update<true>(s, mask, quad, sl2);
         else
           softmax.update<false>(s, mask, quad, sl2);
+        if constexpr (QUANT != 0) {
+          // P.V takes p * vscale[j] (the row sum took p before it); a masked
+          // key's p stays 0 by a select, so its scale is never used
+          const uint64_t mq = mask >> (2 * quad);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 vj = vsc[j];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int r = 4 * j + 2 * i;
+              s[r] = full || ((mq >> (8 * j)) & 1) ? s[r] * vj.x : 0.f;
+              s[r + 1] = full || ((mq >> (8 * j + 1)) & 1) ? s[r + 1] * vj.y
+                                                            : 0.f;
+            }
+          }
+        }
         wgmma_wait<0>();
         reg_fence(o);
         reg_fence(p_prev);
         if (prev >= 0) mbar_arrive(&sm.empty[prev]);
 #pragma unroll
         for (int r = 0; r < 32; ++r) o[r] *= softmax.corr[(r >> 1) & 1];
-        // P as bf16 A fragments: keys 16kk..16kk+15 are registers 8kk..8kk+7
-#pragma unroll
-        for (int x = 0; x < 16; ++x)
-          p_prev[x / 4][x % 4] = pack_bf16(s[2 * x], s[2 * x + 1]);
+        acc_to_a(s, p_prev);                  // P as bf16 A fragments
         prev = stage;
       } else {
         // nothing attended: skipped. The pending P.V is finished first, so
@@ -530,78 +568,36 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
 
 // --- host side ------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
+// the 8-bit layer [B, H, S, 128 bytes] cut at kv_len: dims (128, kv_len, H,
+// B), boxes of 64 bytes x 64 keys (K codes at byte 0, V at 64), unswizzled
+bool encode_code_layer(CUtensorMap* map, const void* base, int b, int h,
+                       int s, int kv_len) {
+  const cuuint64_t row = 2 * kDh;
+  return encode_4d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base,
+                   {2 * kDh, (cuuint64_t)(kv_len > 0 ? kv_len : 1),
+                    (cuuint64_t)h, (cuuint64_t)b},
+                   {row, row * s, row * s * h}, {kDh, 64, 1, 1},
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// A 4-D bf16 map (dims innermost first, byte strides of dims 1..3) read in
-// boxes of 64 x 64 x 1 x 1 or 64 x 1 x 64 x 1, 128-byte swizzle; elements
-// outside the dims are zero-filled.
-bool encode_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
-               const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// [BG, N, H, Dh] activations: dims (Dh, H, N, BG), boxes of 64 rows of N
-bool encode_rows(CUtensorMap* map, const void* base, int bg, int n, int h) {
-  const cuuint64_t row = kDh * 2;
-  return encode_4d(map, base, {kDh, (cuuint64_t)h, (cuuint64_t)n,
-                               (cuuint64_t)bg},
-                   {row, row * h, row * h * n}, {kDh, 1, 64, 1});
-}
-
-// the packed layer [B, H, S, 2*Dh] cut at kv_len: dims (2*Dh, kv_len, H, B)
-bool encode_layer(CUtensorMap* map, const void* base, int b, int h, int s,
-                  int kv_len) {
-  const cuuint64_t row = 2 * kDh * 2;
-  return encode_4d(map, base, {2 * kDh, (cuuint64_t)(kv_len > 0 ? kv_len : 1),
-                               (cuuint64_t)h, (cuuint64_t)b},
-                   {row, row * s, row * s * h}, {kDh, 64, 1, 1});
-}
-
-template <bool CA, bool STATS, bool EXT, int NC>
+template <bool CA, bool STATS, bool EXT, int QUANT, int NC>
 cudaError_t launch_nc(const CUtensorMap& qm, const CUtensorMap& km,
-                      const CUtensorMap& vm, const void* labels,
-                      const void* q_self, const void* q_upper,
-                      const void* ext, void* out, void* lse, int bg, int G,
-                      int N, int H, int S, int n_keys, cudaStream_t stream) {
-  using C = Config<NC>;
-  constexpr int smem = sizeof(Smem<NC>) + 1024;   // + alignment slack
-  auto kernel = attn_fwd_sm90<CA, STATS, EXT, NC>;
+                      const CUtensorMap& vm, const void* kv_scale,
+                      const void* labels, const void* q_self,
+                      const void* q_upper, const void* ext, void* out,
+                      void* lse, int bg, int G, int N, int H, int S,
+                      int n_keys, cudaStream_t stream) {
+  using C = Config<NC, QUANT>;
+  constexpr int smem = sizeof(Smem<NC, QUANT>) + 1024;   // + alignment slack
+  auto kernel = attn_fwd_sm90<CA, STATS, EXT, QUANT, NC>;
   // the attribute belongs to the current device: set on every launch
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + NC * kRows - 1) / (NC * kRows), H, bg);
   kernel<<<grid, C::kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<const int32_t*>(labels),
+      qm, km, vm, static_cast<const float*>(kv_scale),
+      static_cast<const int32_t*>(labels),
       static_cast<const int32_t*>(q_self),
       static_cast<const int32_t*>(q_upper), static_cast<const uint8_t*>(ext),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), G, N, H, S,
@@ -613,12 +609,13 @@ cudaError_t launch_nc(const CUtensorMap& qm, const CUtensorMap& km,
 // one block an SM) when that grid still gives every SM two blocks, else 64
 // (one warpgroup, two blocks an SM), so that a small grid (one image's 768
 // rows x 12 heads: 144 blocks) still fills the SMs.
-template <bool CA, bool STATS, bool EXT>
+template <bool CA, bool STATS, bool EXT, int QUANT>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
-                   const CUtensorMap& vm, const void* labels,
-                   const void* q_self, const void* q_upper, const void* ext,
-                   void* out, void* lse, int bg, int G, int N, int H, int S,
-                   int n_keys, cudaStream_t stream) {
+                   const CUtensorMap& vm, const void* kv_scale,
+                   const void* labels, const void* q_self,
+                   const void* q_upper, const void* ext, void* out, void* lse,
+                   int bg, int G, int N, int H, int S, int n_keys,
+                   cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -626,26 +623,32 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (err != cudaSuccess) return err;
   const long long blocks192 = (long long)((N + 191) / 192) * H * bg;
   if (blocks192 >= 2LL * sms)
-    return launch_nc<CA, STATS, EXT, 3>(qm, km, vm, labels, q_self, q_upper,
-                                        ext, out, lse, bg, G, N, H, S, n_keys,
-                                        stream);
-  return launch_nc<CA, STATS, EXT, 1>(qm, km, vm, labels, q_self, q_upper,
-                                      ext, out, lse, bg, G, N, H, S, n_keys,
-                                      stream);
+    return launch_nc<CA, STATS, EXT, QUANT, 3>(
+        qm, km, vm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg, G,
+        N, H, S, n_keys, stream);
+  return launch_nc<CA, STATS, EXT, QUANT, 1>(
+      qm, km, vm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg, G, N,
+      H, S, n_keys, stream);
 }
 
-cudaError_t ca_launch(const void* q, const void* kv, const void* labels,
-                      const void* q_self, const void* q_upper,
-                      const void* ext, void* out, void* lse, int B, int G,
-                      int N, int H, int S, int kv_len, cudaStream_t st) {
+// The CA variants: STATS when lse is not null, EXT when ext is not null;
+// QUANT with an 8-bit layer and its scales.
+template <int QUANT>
+cudaError_t ca_launch(const void* q, const void* kv, const void* kv_scale,
+                      const void* labels, const void* q_self,
+                      const void* q_upper, const void* ext, void* out,
+                      void* lse, int B, int G, int N, int H, int S,
+                      int kv_len, cudaStream_t st) {
   CUtensorMap qm, kvm;
-  if (!encode_rows(&qm, q, B * G, N, H) ||
-      !encode_layer(&kvm, kv, B, H, S, kv_len))
+  const bool kv_ok = QUANT ? encode_code_layer(&kvm, kv, B, H, S, kv_len)
+                           : encode_layer(&kvm, kv, B, H, S, kv_len);
+  if (!encode_rows(&qm, q, B * G, N, H) || !kv_ok)
     return cudaErrorInvalidValue;
   const int bg = B * G;
 #define MUST3R_CA(STATS, EXT)                                                \
-  launch<true, STATS, EXT>(qm, kvm, kvm, labels, q_self, q_upper, ext, out,  \
-                           lse, bg, G, N, H, S, kv_len, st)
+  launch<true, STATS, EXT, QUANT>(qm, kvm, kvm, kv_scale, labels, q_self,    \
+                                  q_upper, ext, out, lse, bg, G, N, H, S,    \
+                                  kv_len, st)
   if (lse != nullptr)
     return ext != nullptr ? MUST3R_CA(true, true) : MUST3R_CA(true, false);
   return ext != nullptr ? MUST3R_CA(false, true) : MUST3R_CA(false, false);
@@ -665,9 +668,9 @@ int must3r_sa_fwd_bf16(const void* q, const void* k, const void* v, void* out,
   if (!encode_rows(&qm, q, B, N, H) || !encode_rows(&km, k, B, N, H) ||
       !encode_rows(&vm, v, B, N, H))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<false, false, false>(
-      qm, km, vm, nullptr, nullptr, nullptr, nullptr, out, nullptr, B, 1, N,
-      H, 0, N, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch<false, false, false, 0>(
+      qm, km, vm, nullptr, nullptr, nullptr, nullptr, nullptr, out, nullptr,
+      B, 1, N, H, 0, N, static_cast<cudaStream_t>(stream)));
 }
 
 int must3r_ca_fwd_bf16(const void* q, const void* kv, const void* labels,
@@ -675,9 +678,10 @@ int must3r_ca_fwd_bf16(const void* q, const void* kv, const void* labels,
                        int B, int G, int N, int H, int Dh, int S, int kv_len,
                        void* stream) {
   if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ca_launch(q, kv, labels, q_self, q_upper, nullptr,
-                                    out, nullptr, B, G, N, H, S, kv_len,
-                                    static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(ca_launch<0>(q, kv, nullptr, labels, q_self,
+                                       q_upper, nullptr, out, nullptr, B, G,
+                                       N, H, S, kv_len,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // The training variants of K2: lse (fp32 [B, G, H, N]) written when not
@@ -688,9 +692,30 @@ int must3r_ca_fwd_train_bf16(const void* q, const void* kv, const void* labels,
                              int G, int N, int H, int Dh, int S, int kv_len,
                              void* stream) {
   if (Dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ca_launch(q, kv, labels, q_self, q_upper, ext, out,
-                                    lse, B, G, N, H, S, kv_len,
-                                    static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(ca_launch<0>(q, kv, nullptr, labels, q_self,
+                                       q_upper, ext, out, lse, B, G, N, H, S,
+                                       kv_len,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// K2(d): the 8-bit layer read. kv8 [B, H, S, 2*Dh] codes (fmt 1 = int8,
+// 2 = fp8 e4m3; 16-byte aligned), kv_scale [B, H, 2, S] fp32; lse (fp32
+// [B, G, H, N]) written when not null, ext (bool [B, G, S]) read when not
+// null.
+int must3r_ca_fwd_q8(const void* q, const void* kv8, const void* kv_scale,
+                     const void* labels, const void* q_self,
+                     const void* q_upper, const void* ext, void* out,
+                     void* lse, int B, int G, int N, int H, int Dh, int S,
+                     int kv_len, int fmt, void* stream) {
+  if (Dh != kDh || (fmt != kQ8Int8 && fmt != kQ8Fp8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      fmt == kQ8Int8
+          ? ca_launch<kQ8Int8>(q, kv8, kv_scale, labels, q_self, q_upper, ext,
+                               out, lse, B, G, N, H, S, kv_len, st)
+          : ca_launch<kQ8Fp8>(q, kv8, kv_scale, labels, q_self, q_upper, ext,
+                              out, lse, B, G, N, H, S, kv_len, st));
 }
 
 }  // extern "C"

@@ -1,15 +1,17 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-Each source (``attention_sm90.cu``: the forwards K1 and K2, one TMA +
-wgmma program; ``attention.cu``: the WMMA program of K2(d), the 8-bit cache
-read, and K6, two heads per block; ``attention_bwd.cu``: the CA backwards
-K3, K4, K5; ``probe_fp8.cu``: the fp8 probe kernels; ``ln_matmul.cu``: K7,
-LayerNorm + matmul) is compiled with ``nvcc`` at
+Each source (``attention_sm90.cu``: the forwards K1, K2 and K2(d), the
+8-bit cache read, one TMA + wgmma program; ``attention_bwd_sm90.cu``: K5,
+the fused CA backward, a TMA + wgmma program; ``attention.cu``: the WMMA
+program of K6, two heads per block; ``attention_bwd.cu``: the WMMA CA
+backwards K3, K4; ``probe_fp8.cu``: the fp8 probe kernels;
+``ln_matmul.cu``: K7, LayerNorm + matmul) is compiled with ``nvcc`` at
 first use into its own shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), keyed on a hash of the source,
-the shared header and the flags, under ``build/kernels/`` at the root of
+the shared headers and the flags, under ``build/kernels/`` at the root of
 the checkout. The sources are compiled in parallel, one ``nvcc`` each, and
-the libraries loaded with ``ctypes``. Nothing is built or loaded when this module is imported.
+the libraries loaded with ``ctypes``. Nothing is built or loaded when this
+module is imported.
 
 Each wrapper checks device, dtype, shape, head dim and contiguity, allocates
 its outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -31,10 +33,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
-SOURCES = (_CSRC / "attention_sm90.cu", _CSRC / "attention.cu",
-           _CSRC / "attention_bwd.cu", _CSRC / "probe_fp8.cu",
-           _CSRC / "ln_matmul.cu")
-HEADERS = (_CSRC / "common.cuh",)
+SOURCES = (_CSRC / "attention_sm90.cu", _CSRC / "attention_bwd_sm90.cu",
+           _CSRC / "attention.cu", _CSRC / "attention_bwd.cu",
+           _CSRC / "probe_fp8.cu", _CSRC / "ln_matmul.cu")
+HEADERS = (_CSRC / "common.cuh", _CSRC / "sm90.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -103,26 +105,31 @@ def _load(stem: str) -> ctypes.CDLL:
     """The library of ``csrc/<stem>.cu`` (every source is built first)."""
     if not _libs:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        sm90, fwd, bwd, fp8, ln = (ctypes.CDLL(str(p)) for p in build())
+        sm90, bwd90, fwd, bwd, fp8, ln = (ctypes.CDLL(str(p))
+                                          for p in build())
         sm90.must3r_sa_fwd_bf16.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         sm90.must3r_ca_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         sm90.must3r_ca_fwd_train_bf16.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-        fwd.must3r_ca_fwd_q8.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+        sm90.must3r_ca_fwd_q8.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+        bwd90.must3r_ca_bwd_fused_bf16.argtypes = ([ptr] * 11 + [i32] * 7
+                                                   + [ptr])
         fwd.must3r_ca_fwd_2h_bf16.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         bwd.must3r_ca_bwd_dq_bf16.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-        bwd.must3r_ca_bwd_dkv_bf16.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        bwd.must3r_ca_bwd_dkv_bf16.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
         fp8.must3r_fp8_to_bf16_x2.argtypes = [ptr] * 2 + [i32] + [ptr]
         fp8.must3r_fp8_dequant_dot.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
         ln.must3r_ln_matmul_bf16.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
         for fn in (sm90.must3r_sa_fwd_bf16, sm90.must3r_ca_fwd_bf16,
-                   sm90.must3r_ca_fwd_train_bf16, fwd.must3r_ca_fwd_q8,
+                   sm90.must3r_ca_fwd_train_bf16, sm90.must3r_ca_fwd_q8,
+                   bwd90.must3r_ca_bwd_fused_bf16,
                    fwd.must3r_ca_fwd_2h_bf16,
                    bwd.must3r_ca_bwd_dq_bf16, bwd.must3r_ca_bwd_dkv_bf16,
                    fp8.must3r_fp8_to_bf16_x2, fp8.must3r_fp8_dequant_dot,
                    ln.must3r_ln_matmul_bf16):
             fn.restype = i32
-        _libs.update(attention_sm90=sm90, attention=fwd, attention_bwd=bwd,
-                     probe_fp8=fp8, ln_matmul=ln)
+        _libs.update(attention_sm90=sm90, attention_bwd_sm90=bwd90,
+                     attention=fwd, attention_bwd=bwd, probe_fp8=fp8,
+                     ln_matmul=ln)
     return _libs[stem]
 
 
@@ -277,7 +284,7 @@ def ca_fwd(q: torch.Tensor, kv: torch.Tensor, labels: torch.Tensor,
 
 ca_fwd.launches = 0
 
-# K2(d)'s code for each 8-bit cache format (csrc/attention.cu kQ8*)
+# K2(d)'s code for each 8-bit cache format (csrc/attention_sm90.cu kQ8*)
 _Q8_FORMATS = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
@@ -287,10 +294,13 @@ def ca_fwd_q8(q: torch.Tensor, kv: torch.Tensor, kv_scale: torch.Tensor,
               ext: Optional[torch.Tensor] = None, return_stats: bool = False):
     """K2(d): :func:`ca_fwd` against one layer of an 8-bit cache, dequantized
     in flight. kv [B, H, S, 2*Dh] int8 or float8_e4m3fn codes (k | v packed,
-    128 bytes a row); kv_scale [B, H, 2, S] fp32 (deq = code * scale; the
-    layer slice of the memory's [L, B, H, 2, S] scales is contiguous).
-    Everything else as :func:`ca_fwd`; its own launch counter, so that the
-    counts show which read ran."""
+    128 bytes a row; its start 16-byte aligned, as TMA reads it: a layer
+    slice of the memory's [L, B, H, S, 2*Dh] codes is); kv_scale [B, H, 2,
+    S] fp32 (deq = code * scale; the layer slice of the memory's [L, B, H,
+    2, S] scales is contiguous). It runs the TMA + wgmma program of
+    :func:`ca_fwd`, whose producer warpgroup converts the codes to bf16
+    tiles. Everything else as :func:`ca_fwd`; its own launch counter, so
+    that the counts show which read ran."""
     b, g, n, h, dh, s_cap, kv_len = _check_ca(
         "ca_fwd_q8", q, kv, labels, q_self, q_upper, kv_len, ext,
         kv_dtype=tuple(_Q8_FORMATS))
@@ -303,7 +313,7 @@ def ca_fwd_q8(q: torch.Tensor, kv: torch.Tensor, kv_scale: torch.Tensor,
            if return_stats else None)
     if q.numel():
         with torch.cuda.device(q.device):
-            err = _load("attention").must3r_ca_fwd_q8(
+            err = _load("attention_sm90").must3r_ca_fwd_q8(
                 q.data_ptr(), kv.data_ptr(), kv_scale.data_ptr(),
                 labels.data_ptr(), q_self.data_ptr(), q_upper.data_ptr(),
                 _ptr(ext), out.data_ptr(), _ptr(lse), b, g, n, h, dh, s_cap,
@@ -340,33 +350,23 @@ def ca_bwd_dq(q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
 ca_bwd_dq.launches = 0
 
 
-def _bwd_dkv(what, q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
-             ext, fused: bool):
+def ca_bwd_dkv(q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
+               ext=None) -> torch.Tensor:
+    """K4: dK|dV [B, H, S, 2*Dh] bf16 of one cache layer, summed over the G
+    images of the step; keys at or past kv_len get 0."""
     b, g, n, h, dh, s_cap, kv_len = _check_ca(
-        what, q, kv, labels, q_self, q_upper, kv_len, ext)
-    _check_bwd(what, q, lse, delta, dout)
+        "ca_bwd_dkv", q, kv, labels, q_self, q_upper, kv_len, ext)
+    _check_bwd("ca_bwd_dkv", q, lse, delta, dout)
     dkv = torch.empty_like(kv)
-    dq32 = torch.zeros(q.shape, dtype=torch.float32,
-                       device=q.device) if fused else None
     if kv.numel():
         with torch.cuda.device(q.device):
             err = _load("attention_bwd").must3r_ca_bwd_dkv_bf16(
                 q.data_ptr(), kv.data_ptr(), labels.data_ptr(),
                 q_self.data_ptr(), q_upper.data_ptr(), _ptr(ext),
                 lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
-                dkv.data_ptr(), _ptr(dq32), b, g, n, h, dh, s_cap, kv_len,
+                dkv.data_ptr(), b, g, n, h, dh, s_cap, kv_len,
                 _stream(q.device))
-        _raise_on(err, what)
-    return dkv, dq32
-
-
-def ca_bwd_dkv(q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
-               ext=None) -> torch.Tensor:
-    """K4: dK|dV [B, H, S, 2*Dh] bf16 of one cache layer, summed over the G
-    images of the step; keys at or past kv_len get 0."""
-    dkv, _ = _bwd_dkv("ca_bwd_dkv", q, kv, labels, q_self, q_upper, kv_len,
-                      lse, delta, dout, ext, fused=False)
-    if kv.numel():
+        _raise_on(err, "ca_bwd_dkv")
         ca_bwd_dkv.launches += 1
     return dkv
 
@@ -377,11 +377,25 @@ ca_bwd_dkv.launches = 0
 def ca_bwd_fused(q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
                  ext=None):
     """K5: (dQ [B, G, N, H, Dh] bf16, dK|dV [B, H, S, 2*Dh] bf16) in one
-    kernel launch. dQ is summed across key tiles by fp32 atomics into a
-    zeroed buffer, then rounded to bf16."""
-    dkv, dq32 = _bwd_dkv("ca_bwd_fused", q, kv, labels, q_self, q_upper,
-                         kv_len, lse, delta, dout, ext, fused=True)
+    kernel launch, the TMA + wgmma program of ``csrc/attention_bwd_sm90.cu``:
+    a block owns 128 keys and adds each query tile's dQ
+    into a zeroed fp32 buffer by TMA reduce-add, which is then rounded to
+    bf16 (the adds land in no fixed order: dQ is not bitwise
+    reproducible)."""
+    b, g, n, h, dh, s_cap, kv_len = _check_ca(
+        "ca_bwd_fused", q, kv, labels, q_self, q_upper, kv_len, ext)
+    _check_bwd("ca_bwd_fused", q, lse, delta, dout)
+    dkv = torch.empty_like(kv)
+    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     if kv.numel():
+        with torch.cuda.device(q.device):
+            err = _load("attention_bwd_sm90").must3r_ca_bwd_fused_bf16(
+                q.data_ptr(), kv.data_ptr(), labels.data_ptr(),
+                q_self.data_ptr(), q_upper.data_ptr(), _ptr(ext),
+                lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
+                dkv.data_ptr(), dq32.data_ptr(), b, g, n, h, dh, s_cap,
+                kv_len, _stream(q.device))
+        _raise_on(err, "ca_bwd_fused")
         ca_bwd_fused.launches += 1
     return dq32.to(q.dtype), dkv
 

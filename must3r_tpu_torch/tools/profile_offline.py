@@ -11,7 +11,8 @@ once with the plain attention (``"plain"``):
 1. phases: encoder, memory updates, render, head + postprocess, each ended
    by a synchronize (host clock, warm, median of 3);
 2. spread: 10 alternating pairs of kernel / plain requests on the host
-   clock; median, quartiles and range of views/s;
+   clock (``alternating_pairs``); median, quartiles and range of views/s,
+   and the median of the per-pair ratio kernel / plain;
 3. one traced request per impl under ``torch.profiler``. Device time is the
    union of the intervals of every device activity (kernels, copies,
    memsets) in that request; the idle share is 1 - device time / the host
@@ -27,11 +28,14 @@ line of standard output is one JSON object with every number above.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import re
 import statistics
 import subprocess
 import time
 from collections import defaultdict
+from typing import Callable, Dict
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -43,14 +47,20 @@ from must3r_tpu_torch.engine.inference import (InferenceCore,
                                                postprocess, view_positions)
 
 IMPLS = {"kernel": None, "plain": "plain"}
-# the port's attention kernels by (demangled) name: K1, K2 (the TMA + wgmma
-# program), K2(d), K6 (the WMMA program), K3, K4 / K5
-KERNEL_GROUPS = ("attn_fwd_sm90<false", "attn_fwd_sm90<true",
-                 "attn_fwd_kernel<64", "ca_fwd_2h_kernel", "ca_bwd_dq_kernel",
-                 "ca_bwd_kv_kernel<64, false, false",
-                 "ca_bwd_kv_kernel<64, true, false",
-                 "ca_bwd_kv_kernel<64, false, true",
-                 "ca_bwd_kv_kernel<64, true, true")
+# the port's attention kernels by (demangled) name, each group with the
+# pattern its names match: K1, K2 and K2(d) (int8, fp8) of the TMA + wgmma
+# program (template flags CA, STATS, EXT, QUANT, NC), K5 (the TMA + wgmma
+# backward), K6 (WMMA), K3 and K4 (WMMA)
+KERNEL_GROUPS = (
+    ("attn_fwd_sm90<false", r"attn_fwd_sm90<false"),
+    ("attn_fwd_sm90<true", r"attn_fwd_sm90<true, \w+, \w+, 0,"),
+    ("attn_fwd_sm90 q8 int8", r"attn_fwd_sm90<true, \w+, \w+, 1,"),
+    ("attn_fwd_sm90 q8 fp8", r"attn_fwd_sm90<true, \w+, \w+, 2,"),
+    ("ca_bwd_fused_sm90", r"ca_bwd_fused_sm90<"),
+    ("ca_fwd_2h_kernel", r"ca_fwd_2h_kernel"),
+    ("ca_bwd_dq_kernel", r"ca_bwd_dq_kernel"),
+    ("ca_bwd_kv_kernel<64, false", r"ca_bwd_kv_kernel<64, false"),
+    ("ca_bwd_kv_kernel<64, true", r"ca_bwd_kv_kernel<64, true"))
 N_VIEWS = 10
 HW = (384, 512)
 PAIRS = 10
@@ -96,34 +106,47 @@ def phase_times(core: InferenceCore, imgs, reps: int = 3) -> dict:
     return {f"{k}_ms": statistics.median(ts) for k, ts in runs.items()}
 
 
-def spread(runs: dict, imgs, pairs: int) -> dict:
-    """views/s of each run over ``pairs`` alternating requests."""
-    v, dev = imgs.shape[0], imgs.device
-    secs = {k: [] for k in runs}
+def alternating_pairs(runs: Dict[str, Callable[[], None]], pairs: int,
+                      per_call: float = 1.0,
+                      sync: Callable[[], None] = lambda: None,
+                      clock: Callable[[], float] = time.perf_counter) -> dict:
+    """Seconds of each of ``runs`` over ``pairs`` rounds in turns: round i
+    runs them in their order when i is even, in reverse when it is odd,
+    each call ended by ``sync``. Returns, per run, the median, quartiles
+    and range of its rate (``per_call`` units a call: views of a request,
+    1 for a training step), and (with two runs) the median of the
+    per-round ratio of the first run's rate to the second's. Both runs of a
+    round share the host's state of the moment, so a slow stretch of the
+    host moves both."""
     names = list(runs)
+    secs = {k: [] for k in names}
     for i in range(pairs):
         for k in (names if i % 2 == 0 else names[::-1]):
-            _sync(dev)
-            t0 = time.perf_counter()
-            runs[k](imgs)
-            _sync(dev)
-            secs[k].append(time.perf_counter() - t0)
+            sync()
+            t0 = clock()
+            runs[k]()
+            sync()
+            secs[k].append(clock() - t0)
     out = {}
     for k, ss in secs.items():
-        vps = sorted(v / s for s in ss)
-        q = statistics.quantiles(vps, n=4) if len(vps) > 1 else vps * 3
-        out[k] = {"views_per_s_median": statistics.median(vps),
-                  "q1": q[0], "q3": q[2], "min": vps[0], "max": vps[-1],
+        rates = sorted(per_call / s for s in ss)
+        q = statistics.quantiles(rates, n=4) if len(rates) > 1 else rates * 3
+        out[k] = {"per_s_median": statistics.median(rates), "q1": q[0],
+                  "q3": q[2], "min": rates[0], "max": rates[-1],
                   "host_ms_median": statistics.median(ss) * 1e3}
+    if len(names) == 2:
+        a, b = names
+        out[f"{a}_over_{b}_median"] = statistics.median(
+            sb / sa for sa, sb in zip(secs[a], secs[b]))
     return out
 
 
 def kernel_group(name: str) -> str:
     """The group of a device activity: one of KERNEL_GROUPS, "matrix
     products" or "other"."""
-    for g in KERNEL_GROUPS:
-        if g in name:
-            return g
+    for group, pattern in KERNEL_GROUPS:
+        if re.search(pattern, name):
+            return group
     if "gemm" in name or "Gemm" in name or "cutlass" in name or \
             "sm90_xmma" in name or "nvjet" in name:
         return "matrix products"
@@ -204,7 +227,10 @@ def main(argv=None):
     result = {"card": card, "n_views": N_VIEWS, "hw": list(HW),
               "kv_quant": args.kv_quant,
               "phases": {k: phase_times(c, imgs) for k, c in cores.items()},
-              "spread": spread(runs, imgs, PAIRS), "traced": {}}
+              "spread": alternating_pairs(
+                  {k: functools.partial(run, imgs) for k, run in runs.items()},
+                  PAIRS, per_call=N_VIEWS, sync=lambda: _sync(dev)),
+              "traced": {}}
     tables = []
     for k, run in runs.items():
         summary, table = traced(run, imgs)

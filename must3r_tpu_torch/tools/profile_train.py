@@ -11,13 +11,24 @@ token dropout 0.1, through ``make_train_step``:
   * ``224``: MUSt3R_224, batch 1, 20 views of 224 x 224 in causal blocks of
     5, 2 rendered (the JAX package's training recipe).
 
-For each: the host time of 5 warm steps, each ended by a synchronize
-(median and range), then one step under ``torch.profiler``: device busy
-time (the union of every device activity's interval), the idle share
-(1 - busy / host time of that traced step), the device time of each group
-of kernels (the port's attention kernels by name, matrix products,
-everything else) and the top kernels, which go to ``--out``. The last line
-of standard output is one JSON object with every number.
+For each:
+
+1. steps/s by the median of alternating pairs: ``--pairs`` rounds of one
+   step with the attention kernels (``impl=None``) and one with the plain
+   attention (``"plain"``), in turns (kernel first in even rounds, plain
+   first in odd ones), each ended by a synchronize; median, quartiles and
+   range of each, and the median of the per-round ratio kernel / plain
+   (``profile_offline.alternating_pairs``, which also reads its views/s).
+   Both runs share the host's state of the moment, so a slow stretch of
+   the host moves both (the plain run is the control when two trees are
+   compared in turns);
+2. one kernel step under ``torch.profiler``: device busy time (the union
+   of every device activity's interval), the idle share (1 - busy / host
+   time of that traced step), the device time of each group of kernels
+   (the port's attention kernels by name, matrix products, everything
+   else) and the top kernels, which go to ``--out``.
+
+The last line of standard output is one JSON object with every number.
 """
 
 from __future__ import annotations
@@ -25,7 +36,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import statistics
 import subprocess
 import time
 from collections import defaultdict
@@ -39,9 +49,12 @@ from must3r_tpu_torch.engine.inference import view_positions
 from must3r_tpu_torch.engine.train import (TrainSettings, cast_frozen_params,
                                            cosine_schedule, make_optimizer,
                                            make_train_step, trainable_subset)
-from must3r_tpu_torch.tools.profile_offline import _union_us, kernel_group
+from must3r_tpu_torch.tools.profile_offline import (_union_us,
+                                                    alternating_pairs,
+                                                    kernel_group)
 
 SEED = 0
+PAIRS = 8
 CONFIGS = {
     "512": dict(cfgs=must3r_512_configs, b=2, hw=(384, 512),
                 ts=TrainSettings(dropout_p=0.1), render=[3, 1]),
@@ -68,7 +81,7 @@ def random_train_batch(dev, gen, b, v, hw, patch, render):
     }
 
 
-def profile_config(name: str, dev, top: int = 20):
+def profile_config(name: str, dev, pairs: int = PAIRS, top: int = 20):
     c = CONFIGS[name]
     enc_cfg, dec_cfg = c["cfgs"]()
     dec_cfg = dataclasses.replace(dec_cfg, causal=True)
@@ -77,29 +90,34 @@ def profile_config(name: str, dev, top: int = 20):
     params = cast_frozen_params({"encoder": enc, "decoder": dec}, ts)
     opt = make_optimizer(cosine_schedule(1e-4, 10, 1000), weight_decay=0.05)
     state = opt.init(trainable_subset(params, ts))
-    step = make_train_step(enc_cfg, dec_cfg, ts, opt)
+    steps = {k: make_train_step(enc_cfg, dec_cfg, ts, opt, impl=impl)
+             for k, impl in (("kernel", None), ("plain", "plain"))}
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     batch = random_train_batch(dev, gen, c["b"], sum(ts.mem_batches),
                                c["hw"], enc_cfg.patch_size, c["render"])
 
-    for _ in range(2):                                  # warm-up
-        params, state, loss, _ = step(params, state, batch, gen)
-    torch.cuda.synchronize(dev)
-    host = []
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(5):
-        t0 = time.perf_counter()
-        params, state, loss, _ = step(params, state, batch, gen)
-        torch.cuda.synchronize(dev)
-        host.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated(dev)
+    def run(k):
+        def go():
+            nonlocal params, state
+            params, state, _, _ = steps[k](params, state, batch, gen)
+        return go
 
+    runs = {k: run(k) for k in steps}
+    for _ in range(2):                                  # warm-up
+        for go in runs.values():
+            go()
+    spread = alternating_pairs(runs, pairs,
+                               sync=lambda: torch.cuda.synchronize(dev))
+    step = steps["kernel"]
+
+    torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, state, loss, _ = step(params, state, batch, gen)
         torch.cuda.synchronize(dev)
         traced_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = _union_us((e.time_range.start, e.time_range.end)
@@ -115,15 +133,14 @@ def profile_config(name: str, dev, top: int = 20):
     table = "\n".join(f"{ms:10.3f} ms {n:6d}x  {nm[:110]}"
                       for nm, (ms, n) in rows)
     summary = {
-        "loss": float(loss), "host_ms_median": statistics.median(host),
-        "host_ms_min": min(host), "host_ms_max": max(host),
-        "steps_per_s": 1e3 / statistics.median(host),
+        "loss": float(loss),
+        "steps_per_s": spread["kernel"]["per_s_median"], "spread": spread,
         "peak_gib": peak / 2**30, "traced_host_ms": traced_ms,
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / traced_ms,
         "device_ms_by_group": dict(sorted(groups.items(),
                                           key=lambda kv: -kv[1])),
     }
-    del params, state, step, enc, dec
+    del params, state, step, steps, runs, enc, dec
     torch.cuda.empty_cache()
     return summary, table
 
@@ -131,6 +148,10 @@ def profile_config(name: str, dev, top: int = 20):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="file for the kernel tables")
+    ap.add_argument("--pairs", type=int, default=PAIRS,
+                    help="alternating rounds of a kernel and a plain step")
+    ap.add_argument("--configs", nargs="+", default=list(CONFIGS),
+                    choices=list(CONFIGS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -140,8 +161,8 @@ def main(argv=None):
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     result, tables = {"card": card}, []
-    for name in CONFIGS:
-        summary, table = profile_config(name, dev)
+    for name in args.configs:
+        summary, table = profile_config(name, dev, args.pairs)
         result[name] = summary
         tables.append(f"== {name}: {json.dumps(summary)}\n{table}")
         print(tables[-1], flush=True)

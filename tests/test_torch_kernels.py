@@ -11,10 +11,12 @@ kernel tests) and relative RMSE <= 1e-2. The LSE is held to 1e-2 absolute:
 it is m + log(l) of fp32 scores of bf16 inputs, |lse| ~ 5-10, and the two
 sum the scores in another order (a few fp32 ulps of the products, far below
 1e-2), while a wrong mask or scale moves it by O(1). K5 sums dq across key
-tiles with fp32 atomics, whose order changes from run to run, so its dq is
-held to the same bounds but not compared bit for bit between runs.
+blocks with fp32 reduce-adds, whose order changes from run to run, so its
+dq is held to the same bounds but not compared bit for bit between runs.
 
-Every test is marked ``cuda`` and skips without a GPU. This file imports no
+Every kernel test is marked ``cuda`` and skips without a GPU; the tests of
+the profilers' and the variant builds' helpers run on the CPU. This file
+imports no
 jax, so on a GPU machine without jax it runs on its own (the repo's conftest
 imports jax):
 
@@ -26,6 +28,7 @@ import pytest
 import torch
 
 from must3r_tpu_torch.ops import attention as tatt
+from must3r_tpu_torch.tools import ablate_kernels
 from must3r_tpu_torch.tools.parity import RMSE_REL, kernel_error
 
 DH = 64
@@ -184,21 +187,110 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev, bad):
 # ---------------------------------------------------------------------------
 
 def test_profile_groups_name_the_kernels_of_each_program():
-    """The profile tools sum device time by kernel name: K1 and K2 run the
-    TMA + wgmma program, K2(d) the WMMA one (runs on the CPU)."""
+    """The profile tools sum device time by kernel name: K1, K2 and K2(d)
+    (int8, fp8) run the TMA + wgmma forward program, K5 the TMA + wgmma
+    backward, K3 / K4 / K6 the WMMA ones (runs on the CPU)."""
     from must3r_tpu_torch.tools.profile_offline import kernel_group
 
+    fwd = "void (anonymous namespace)::attn_fwd_sm90<{}>(CUtensorMap_st, ...)"
     for name, group in [
-            ("void (anonymous namespace)::attn_fwd_sm90<false, false, false,"
-             " 3>(CUtensorMap_st, ...)", "attn_fwd_sm90<false"),
-            ("void (anonymous namespace)::attn_fwd_sm90<true, true, true, 1>"
-             "(CUtensorMap_st, ...)", "attn_fwd_sm90<true"),
-            ("void (anonymous namespace)::attn_fwd_kernel<64, false, false, 2>"
-             "(...)", "attn_fwd_kernel<64"),
+            (fwd.format("false, false, false, 0, 3"), "attn_fwd_sm90<false"),
+            (fwd.format("true, true, true, 0, 1"), "attn_fwd_sm90<true"),
+            (fwd.format("true, false, false, 1, 3"), "attn_fwd_sm90 q8 int8"),
+            (fwd.format("true, true, true, 2, 1"), "attn_fwd_sm90 q8 fp8"),
+            ("void (anonymous namespace)::ca_bwd_fused_sm90<true, 2>"
+             "(CUtensorMap_st, ...)", "ca_bwd_fused_sm90"),
+            ("void (anonymous namespace)::ca_bwd_kv_kernel<64, false>(...)",
+             "ca_bwd_kv_kernel<64, false"),
+            ("void (anonymous namespace)::ca_bwd_dq_kernel<64, true>(...)",
+             "ca_bwd_dq_kernel"),
+            ("void (anonymous namespace)::ca_fwd_2h_kernel<64>(...)",
+             "ca_fwd_2h_kernel"),
             ("nvjet_tss_192x192_64x4_2x1_v_bz_coopB_TNN", "matrix products"),
             ("void at::native::vectorized_elementwise_kernel<8, ...>",
              "other")]:
         assert kernel_group(name) == group, name
+
+
+@pytest.mark.parametrize("per_call", [1.0, 10.0])
+def test_profile_train_alternating_pairs_median(per_call):
+    """The rate of profile_train (steps/s, 1 a call) and profile_offline
+    (views/s, 10 a request): rounds in turns (kernel first in even rounds,
+    plain first in odd ones), each call timed alone, medians and quartiles
+    of the rates, and the median of the per-round ratio (runs on the CPU
+    with a fake clock)."""
+    from must3r_tpu_torch.tools import profile_train
+    from must3r_tpu_torch.tools.profile_offline import alternating_pairs
+
+    assert profile_train.alternating_pairs is alternating_pairs
+
+    now = [0.0]
+    order = []
+    durations = {"kernel": iter([0.5, 0.25, 1.0, 0.5, 0.5]),
+                 "plain": iter([1.0, 1.0, 2.0, 1.0, 4.0])}
+
+    def run(name):
+        def go():
+            order.append(name)
+            now[0] += next(durations[name])
+        return go
+
+    syncs = []
+    out = alternating_pairs({"kernel": run("kernel"), "plain": run("plain")},
+                            5, per_call=per_call,
+                            sync=lambda: syncs.append(1),
+                            clock=lambda: now[0])
+    assert order == ["kernel", "plain", "plain", "kernel", "kernel",
+                     "plain", "plain", "kernel", "kernel", "plain"]
+    assert len(syncs) == 20                   # before and after each call
+    k, p = out["kernel"], out["plain"]
+    assert k["per_s_median"] == 2.0 * per_call
+    assert p["per_s_median"] == 1.0 * per_call
+    assert (k["min"], k["max"]) == (1.0 * per_call, 4.0 * per_call)
+    assert (p["min"], p["max"]) == (0.25 * per_call, 1.0 * per_call)
+    assert k["host_ms_median"] == 500.0 and p["host_ms_median"] == 1000.0
+    assert k["q1"] <= k["per_s_median"] <= k["q3"]
+    # per-round plain / kernel time: 2, 4, 2, 2, 8
+    assert out["kernel_over_plain_median"] == 2.0
+
+
+@pytest.mark.parametrize("name", list(ablate_kernels.VARIANTS))
+def test_ablate_variants_apply_to_the_sources(name):
+    """Each variant build of tools/ablate_kernels.py finds every text it
+    edits exactly once in today's kernel source (it raises otherwise), and
+    the unchanged variants are the sources themselves."""
+    from must3r_tpu_torch.ops import _kernels
+
+    stem, off, edits = ablate_kernels.VARIANTS[name]
+    src = (_kernels._CSRC / f"{stem}.cu").read_text()
+    text = ablate_kernels.variant_source(name)
+    assert (text == src) == (not edits) and off
+    for old, new in edits:
+        assert new in text
+
+
+def test_ablate_ptxas_report_reads_registers_and_spills():
+    REPORTED, ptxas_report = (ablate_kernels.REPORTED,
+                              ablate_kernels.ptxas_report)
+    log = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__d3_17_attention_sm90_cu_ee13attn_fwd_sm90ILb1ELb0ELb0ELi1ELi3EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN50_GLOBAL__N__d3_17_attention_sm90_cu_ee13attn_fwd_sm90ILb1ELb0ELb0ELi1ELi3EEEv14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__d3_17_attention_sm90_cu_ee13attn_fwd_sm90ILb1ELb1ELb0ELi0ELi1EEEv14CUtensorMap_st' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__b2_21_attention_bwd_sm90_cu_68017ca_bwd_fused_sm90ILb1EEEv14CUtensorMap_st' for 'sm_90a'
+    40 bytes stack frame, 48 bytes spill stores, 84 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+"""
+    got = ptxas_report(log, lambda k: k.startswith(REPORTED))
+    assert got == {
+        "attn_fwd_sm90<1, 0, 0, 1, 3>": dict(spill_stores=0, spill_loads=0,
+                                             registers=128),
+        "ca_bwd_fused_sm90<1>": dict(spill_stores=48, spill_loads=84,
+                                     registers=168)}
+    assert len(ptxas_report(log)) == 3
 
 
 def _poison_past(kv, kv_len):
@@ -585,3 +677,220 @@ def test_ln_matmul_kernel_matches_plain(dev, m, k, n):
     want = bk.ln_matmul(x, g, b, w, impl="plain")
     assert got.shape == (m, n) and torch.isfinite(got).all()
     _assert_matches_plain(got, want, ulp_allowance=True)
+
+
+# ---------------------------------------------------------------------------
+# K2(d) on the TMA + wgmma program, and K5 as a wgmma program, at the main
+# path's shapes and edges
+# ---------------------------------------------------------------------------
+
+def _memory_labels(dev, s_cap, live, per_img):
+    """[1, s_cap] labels of a memory of live // per_img images."""
+    return _labels(dev, s_cap, live, per_img)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", Q8_FORMATS)
+@pytest.mark.parametrize("case", [
+    # name, heads, n, q_self: the render with 192-row blocks (12 heads) and
+    # with 64-row blocks (2 heads); the update, whose own image's 12 key
+    # tiles are skipped (the ring must not deadlock on them)
+    ("render_nc3", 12, 7680, -2), ("render_nc1", 2, 7680, -2),
+    ("update", 12, 768, 9)])
+def test_ca_q8_sm90_matches_plain_at_main_path_shapes(dev, qdtype, case):
+    """K2(d) against its plain version against a 10-view memory (7,680 live
+    slots of 8,192), with the launch counted once."""
+    from must3r_tpu_torch.ops import _kernels
+
+    _, heads, n, q_self = case
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q = _randn(gen, dev, 1, 1, n, heads, DH)
+    from must3r_tpu_torch.memory import quantize_kv
+    codes, scale = quantize_kv(_randn(gen, dev, 1, 1, heads, 8192, 2 * DH),
+                               qdtype)
+    lab = _memory_labels(dev, 8192, 7680, 768)
+    qs = torch.full((1, 1), q_self, dtype=torch.int32, device=dev)
+    qu = torch.full((1, 1), INT32_MAX, dtype=torch.int32, device=dev)
+    tatt.reset_launch_counts()
+    got = _kernels.ca_fwd_q8(q, codes[0], scale[0], lab, qs, qu, 7680)
+    assert tatt.launch_counts()["ca_fwd_q8"] == 1
+    want = tatt._ca_q8_plain(q, codes[0], scale[0], lab, qs, qu, 7680)
+    _assert_matches_plain(got, want)
+
+
+def _poison_q8(codes, scale, slots, qdtype):
+    """Copies of codes / scales whose ``slots`` (a bool [S] mask) hold NaN
+    codes (fp8) or the extreme codes (int8), and NaN, +inf and 1e30
+    scales."""
+    bad_c, bad_s = codes.clone(), scale.clone()
+    raw = bad_c.view(torch.uint8)
+    idx = slots.nonzero().flatten()
+    if qdtype == torch.int8:
+        raw[:, :, idx, 0::2] = 127
+        raw[:, :, idx, 1::2] = 128                # -128
+    else:
+        raw[:, :, idx] = 0x7F                     # e4m3 NaN
+    for k, v in enumerate((float("nan"), float("inf"), 1e30)):
+        sel = idx[k::3]
+        bad_s[..., sel] = v
+    return bad_c, bad_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", Q8_FORMATS)
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 65, 1000])
+def test_ca_q8_sm90_masked_and_past_kv_len_slots_change_nothing(dev, qdtype,
+                                                                 kv_len):
+    """An 8,192-slot layer: the slots at or past kv_len and the slots that
+    the step's masks block (an image's own label, q_upper, the dropout mask)
+    hold NaN / extreme codes and NaN / inf / 1e30 scales, and the output and
+    the LSE are bitwise those of the clean call, with and without STATS /
+    EXT; they match the plain version."""
+    from must3r_tpu_torch.memory import quantize_kv
+    from must3r_tpu_torch.ops import _kernels
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    s_cap = 8192
+    q = _randn(gen, dev, 1, 2, 100, 12, DH)
+    codes, scale = quantize_kv(_randn(gen, dev, 1, 12, s_cap, 2 * DH), qdtype)
+    lab = _labels(dev, s_cap, s_cap, 250)
+    qs = torch.tensor([[1, -2]], dtype=torch.int32, device=dev)
+    qu = torch.tensor([[INT32_MAX, 3]], dtype=torch.int32, device=dev)
+    ext = torch.rand(1, 2, s_cap, generator=gen, device=dev) < 0.1
+    slot = torch.arange(s_cap, device=dev)
+    # blocked for both images: past kv_len, or label 1 with the dropout
+    # mask of image 1 (image 0 skips label 1, image 1 everything >= 3)
+    blocked = (slot >= kv_len) | ((lab[0] == 1) & ext[0, 1])
+    bad_c, bad_s = _poison_q8(codes, scale, blocked, qdtype)
+    for e in (None, ext):
+        if e is None:
+            # without ext, only slots past kv_len are blocked for both
+            bc, bs = _poison_q8(codes, scale, slot >= kv_len, qdtype)
+        else:
+            bc, bs = bad_c, bad_s
+        out, lse = _kernels.ca_fwd_q8(q, codes, scale, lab, qs, qu, kv_len,
+                                      ext=e, return_stats=True)
+        out2, lse2 = _kernels.ca_fwd_q8(q, bc, bs, lab, qs, qu, kv_len,
+                                        ext=e, return_stats=True)
+        assert torch.isfinite(out2).all()
+        assert torch.equal(out, out2) and torch.equal(lse, lse2)
+        if kv_len == 0:
+            assert float(out.abs().max()) == 0.0
+            assert bool((lse == tatt.EMPTY_LSE).all())
+            continue
+        want, want_lse = tatt._ca_q8_plain(q, codes, scale, lab, qs, qu,
+                                           kv_len, e, return_stats=True)
+        _assert_matches_plain(out, want)
+        assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    bc, bs = _poison_q8(codes, scale, slot >= kv_len, qdtype)
+    assert torch.equal(_kernels.ca_fwd_q8(q, bc, bs, lab, qs, qu, kv_len),
+                       _kernels.ca_fwd_q8(q, codes, scale, lab, qs, qu,
+                                          kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", Q8_FORMATS)
+def test_ca_q8_sm90_row_that_attends_nothing_is_zero(dev, qdtype):
+    """Image 0 attends nothing (every live slot carries its own label),
+    whose slots hold NaN codes and scales: its rows are exactly 0 and its
+    LSE +1e30; image 1 attends them."""
+    from must3r_tpu_torch.memory import quantize_kv
+    from must3r_tpu_torch.ops import _kernels
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q = _randn(gen, dev, 1, 2, 130, 12, DH)
+    codes, scale = quantize_kv(_randn(gen, dev, 1, 12, 1024, 2 * DH), qdtype)
+    lab = torch.full((1, 1024), -1, dtype=torch.int32, device=dev)
+    lab[0, :700] = 4
+    qs = torch.tensor([[4, -2]], dtype=torch.int32, device=dev)
+    qu = torch.full((1, 2), INT32_MAX, dtype=torch.int32, device=dev)
+    out, lse = _kernels.ca_fwd_q8(q, codes, scale, lab, qs, qu, 700,
+                                  return_stats=True)
+    assert torch.isfinite(out).all()
+    assert float(out[:, 0].abs().max()) == 0.0
+    assert bool((lse[:, 0] == tatt.EMPTY_LSE).all())
+    assert float(out[:, 1].abs().max()) > 0.0
+
+
+def _fused_case(dev, seed, b, g, n, n_imgs, per_img, q_self, q_upper, ext_p,
+                s_extra=0, heads=12):
+    """A K5 call of the training path: a memory of n_imgs images of per_img
+    tokens (kv [B, H, kv_len + s_extra, 128]), the step's masks, and lse /
+    delta from the plain forward."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kv_len = n_imgs * per_img
+    s_cap = kv_len + s_extra
+    q = _randn(gen, dev, b, g, n, heads, DH)
+    kv = _randn(gen, dev, b, heads, s_cap, 2 * DH)
+    lab = _labels(dev, s_cap, kv_len, per_img).expand(b, s_cap).contiguous()
+    qs = torch.tensor([q_self] * b, dtype=torch.int32, device=dev)
+    qu = torch.tensor([q_upper] * b, dtype=torch.int32, device=dev)
+    ext = (torch.rand(b, g, s_cap, generator=gen, device=dev) < ext_p
+           if ext_p else None)
+    dout = _randn(gen, dev, b, g, n, heads, DH)
+    _, lse, delta = _plain_stats(q, kv, lab, qs, qu, kv_len, ext, dout)
+    return (q, kv, lab, qs, qu, kv_len, lse, delta, dout, ext)
+
+
+FUSED_CASES = {
+    # the init pair of the 512 step: [2, 2, 768] against 1,536 keys
+    "init_pair": (2, 2, 768, 2, 768, [-2, 1], [2, 1], 0.1),
+    # the 224 recipe's last block: 5 images of 196 rows (a ragged 64-row
+    # tail) against 20 images of 196 tokens, causal, dropout mask
+    "224_last_block": (1, 5, 196, 20, 196, [15, 16, 17, 18, 19],
+                       [15, 16, 17, 18, 19], 0.1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_ca_bwd_fused_sm90_matches_plain(dev, case):
+    """K5 against its plain version at the training path's shapes; one
+    launch of K5 and none of K3 / K4. dq is summed by reduce-adds in no
+    fixed order: held to the same bounds."""
+    from must3r_tpu_torch.ops import _kernels
+
+    args = _fused_case(dev, 24, *FUSED_CASES[case], s_extra=100)
+    want_dq, want_dkv = tatt._ca_bwd_fused_plain(*args)
+    tatt.reset_launch_counts()
+    dq, dkv = _kernels.ca_bwd_fused(*args)
+    counts = tatt.launch_counts()
+    assert (counts["ca_bwd_fused"], counts["ca_bwd_dq"],
+            counts["ca_bwd_dkv"]) == (1, 0, 0)
+    _assert_matches_plain(dq, want_dq)
+    _assert_matches_plain(dkv[..., :DH], want_dkv[..., :DH])
+    _assert_matches_plain(dkv[..., DH:], want_dkv[..., DH:])
+    kv_len = args[5]
+    assert float(dkv[:, :, kv_len:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_ca_bwd_fused_sm90_empty_rows_and_dead_keys(dev):
+    """Image 1 attends nothing (LSE +1e30): its dq is exactly 0 and, with
+    the gradient only on it, dK|dV is 0 everywhere; with the gradient on
+    image 0, dK|dV is live up to kv_len and exactly 0 past it (a whole key
+    block past kv_len, and the tail of a live one)."""
+    from must3r_tpu_torch.ops import _kernels
+
+    q, kv, lab, qs, qu, kv_len, lse, delta, dout, ext = _fused_case(
+        dev, 25, 2, 2, 300, 3, 300, [-2, 0], [1, 1], 0.0, s_extra=300)
+    assert bool((lse[:, 1] == tatt.EMPTY_LSE).all())
+    dout1 = dout.clone()
+    dout1[:, 0] = 0
+    tatt.reset_launch_counts()
+    dq, dkv = _kernels.ca_bwd_fused(q, kv, lab, qs, qu, kv_len, lse,
+                                    torch.zeros_like(delta), dout1, ext)
+    counts = tatt.launch_counts()
+    assert (counts["ca_bwd_fused"], counts["ca_bwd_dq"],
+            counts["ca_bwd_dkv"]) == (1, 0, 0)
+    for t in (dq, dkv):
+        assert torch.isfinite(t).all() and float(t.abs().max()) == 0.0
+    dq, dkv = _kernels.ca_bwd_fused(q, kv, lab, qs, qu, kv_len, lse, delta,
+                                    dout, ext)
+    assert float(dq[:, 1].abs().max()) == 0.0
+    assert float(dkv[:, :, kv_len:].abs().max()) == 0.0
+    assert float(dkv[:, :, :300].abs().max()) > 0.0
+    want_dq, want_dkv = tatt._ca_bwd_fused_plain(q, kv, lab, qs, qu, kv_len,
+                                                 lse, delta, dout, ext)
+    _assert_matches_plain(dq, want_dq)
+    _assert_matches_plain(dkv, want_dkv)
