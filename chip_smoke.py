@@ -20,12 +20,13 @@ non-zero:
      time is printed beside its device time, and its bound beside both.
   B'. The training kernels against their plain versions at the training
      path's shapes (512 and 224): K2 with the LSE and the token-dropout mask
-     (LSE within 1e-2 absolute), K3 + K4 (WMMA, ``csrc/attention_bwd.cu``)
-     and K5 (the TMA + wgmma program of ``csrc/attention_bwd_sm90.cu``; dq,
-     dk, dv each within phase B's bounds); an image that attends
-     nothing gets zero gradients, slots past kv_len get dK|dV = 0. Kernel,
-     plain version and ``scaled_dot_product_attention`` (a yardstick only)
-     timed as in B, with the achieved TFLOP/s and share of the bound.
+     (LSE within 1e-2 absolute), K3 + K4 and K5 (the TMA + wgmma programs
+     of ``csrc/attention_bwd_sm90.cu``; dq, dk, dv each within phase B's
+     bounds); an image that attends nothing gets zero gradients, slots past
+     kv_len get dK|dV = 0. Kernel, plain version and
+     ``scaled_dot_product_attention`` (a yardstick only) timed as in B, with
+     the achieved TFLOP/s and share of the bound; at each shape K3 + K4
+     beside K5 and the route ``_fold_stripe`` takes (the routing evidence).
   C. The main path at full width: MUSt3R_512 (ViT-L encoder 24 x 1024,
      ViT-B decoder 12 x 768) with seeded random weights, bf16, 10 views of
      512 x 384 per collection. Three requests: two collections through
@@ -495,6 +496,15 @@ def phase_train_kernels(dev):
                 f"{lib_ms:.4f} ms  bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}); achieved {w['gflop'] / r['ms']:.1f} "
                 f"TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of the bound")
+        ms = {k: rec[k][-1]["ms"] for k in ("ca_bwd_dq", "ca_bwd_dkv",
+                                            "ca_bwd_fused")}
+        route = ("K5" if tatt._fold_stripe(g, n) is not None
+                 else "K3 + K4")
+        log(f"[B'] routing {name}: K3 + K4 "
+            f"{ms['ca_bwd_dq'] + ms['ca_bwd_dkv']:.4f} ms "
+            f"({ms['ca_bwd_dq']:.4f} + {ms['ca_bwd_dkv']:.4f}) against K5 "
+            f"{ms['ca_bwd_fused']:.4f} ms, SDPA's backward {lib_ms:.4f} ms; "
+            f"_fold_stripe sends this shape to {route}")
 
     # a query image that attends nothing gets dq = 0 and adds nothing to
     # dK|dV; slots at or past kv_len get dK|dV = 0 exactly
@@ -1314,11 +1324,10 @@ def main():
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    sm90, bwd90, fwd, bwd, fp8, ln = (
+    sm90, bwd90, fwd, fp8, ln = (
         "must3r_tpu_torch/csrc/attention_sm90.cu",
         "must3r_tpu_torch/csrc/attention_bwd_sm90.cu",
         "must3r_tpu_torch/csrc/attention.cu",
-        "must3r_tpu_torch/csrc/attention_bwd.cu",
         "must3r_tpu_torch/csrc/probe_fp8.cu",
         "must3r_tpu_torch/csrc/ln_matmul.cu")
     ca_all = ca + train_k["ca_fwd_train"]
@@ -1326,9 +1335,9 @@ def main():
         entry("sa_fwd", sm90, "must3r_tpu/ops/attention.py:213", sa, 0),
         entry("ca_fwd", sm90, "must3r_tpu/ops/attention.py:554", ca_all,
               len(ca) - 1),
-        entry("ca_bwd_dq", bwd, "must3r_tpu/ops/attention.py:936",
+        entry("ca_bwd_dq", bwd90, "must3r_tpu/ops/attention.py:936",
               train_k["ca_bwd_dq"], 1),
-        entry("ca_bwd_dkv", bwd, "must3r_tpu/ops/attention.py:1112",
+        entry("ca_bwd_dkv", bwd90, "must3r_tpu/ops/attention.py:1112",
               train_k["ca_bwd_dkv"], 1),
         entry("ca_bwd_fused", bwd90, "must3r_tpu/ops/attention.py:1335",
               train_k["ca_bwd_fused"], 2),

@@ -3,8 +3,8 @@ Hopper GPU.
 
 Plain tensor code is PyTorch; the flash-attention kernels of the
 offline-reconstruction and training paths are CUDA C++ written for sm_90a
-(``csrc/attention.cu``, ``csrc/attention_bwd.cu``), each with a plain
-PyTorch version beside it that CPU tensors take. Parameters carry the
+(``csrc/attention_sm90.cu``, ``csrc/attention_bwd_sm90.cu``), each with a
+plain PyTorch version beside it that CPU tensors take. Parameters carry the
 reference state-dict key names, and public functions keep the JAX package's
 tensor layouts.
 

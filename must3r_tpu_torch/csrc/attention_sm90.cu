@@ -605,10 +605,8 @@ cudaError_t launch_nc(const CUtensorMap& qm, const CUtensorMap& km,
   return cudaGetLastError();
 }
 
-// Rows per block: 192 (three consumer warpgroups sharing each K/V stage,
-// one block an SM) when that grid still gives every SM two blocks, else 64
-// (one warpgroup, two blocks an SM), so that a small grid (one image's 768
-// rows x 12 heads: 144 blocks) still fills the SMs.
+// Rows per block: 192 (three consumer warpgroups sharing each K/V stage)
+// or 64, by consumers_per_block (sm90.cuh).
 template <bool CA, bool STATS, bool EXT, int QUANT>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                    const CUtensorMap& vm, const void* kv_scale,
@@ -616,13 +614,10 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                    const void* q_upper, const void* ext, void* out, void* lse,
                    int bg, int G, int N, int H, int S, int n_keys,
                    cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int nc = 1;
+  const cudaError_t err = consumers_per_block(N, (long long)H * bg, &nc);
   if (err != cudaSuccess) return err;
-  const long long blocks192 = (long long)((N + 191) / 192) * H * bg;
-  if (blocks192 >= 2LL * sms)
+  if (nc == 3)
     return launch_nc<CA, STATS, EXT, QUANT, 3>(
         qm, km, vm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg, G,
         N, H, S, n_keys, stream);

@@ -1,6 +1,6 @@
-// Shared constants and helpers of the port's attention kernels
-// (attention_sm90.cu: K1, K2; attention.cu: K2(d), K6; attention_bwd.cu: CA
-// backwards).
+// Shared constants and helpers of the port's kernels (attention_sm90.cu:
+// K1, K2, K2(d); attention_bwd_sm90.cu: K3, K4, K5; attention.cu: K6;
+// ln_matmul.cu: K7). The tile constants are the WMMA program's (K6).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,7 +1,8 @@
 // Device and host helpers of the port's TMA + wgmma programs for Hopper
 // (sm_90a): attention_sm90.cu (K1, K2, K2(d)) and attention_bwd_sm90.cu
-// (K5). mbarriers, TMA loads and reduce-adds, wgmma with both operands in
-// shared memory or A in registers, and the tensor-map encoder.
+// (K3, K4, K5). mbarriers, TMA loads and reduce-adds, wgmma with both
+// operands in shared memory or A in registers, the key mask of a memory
+// CA, the tensor-map encoder and the rule for the query rows of a block.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder: see encoder())
@@ -224,7 +225,34 @@ __device__ __forceinline__ void acc_to_a(const float (&s)[32],
     a[x / 4][x % 4] = pack_bf16(s[2 * x], s[2 * x + 1]);
 }
 
+// Bit `lane` of the result: whether image bz attends key j of the memory
+// (j < kv_len, the label predicate, and with EXT no token-dropout mark).
+// One call per warp; labels_b and ext_bz point at the rows of b and bz.
+template <bool EXT>
+__device__ __forceinline__ uint32_t ballot_allowed(
+    const int32_t* __restrict__ labels_b, const uint8_t* __restrict__ ext_bz,
+    int j, int kv_len, int q_self, int q_upper) {
+  bool a = j < kv_len && slot_allowed(labels_b[j], q_self, q_upper);
+  if (EXT && a) a = ext_bz[j] == 0;
+  return __ballot_sync(0xffffffffu, a);
+}
+
 // --- host side ------------------------------------------------------------
+
+// Consumer warpgroups (64 query rows each) per block of the programs that
+// own query rows (K1, K2, K3): 3 (one block an SM) when ceil(N / 192) * H
+// * B * G blocks still give every SM two, else 1 (two blocks an SM), so
+// that a small grid (one image's 768 rows x 12 heads: 144 blocks) still
+// fills the SMs.
+inline cudaError_t consumers_per_block(int n, long long h_bg, int* nc) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *nc = (long long)((n + 191) / 192) * h_bg >= 2LL * sms ? 3 : 1;
+  return cudaSuccess;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,

@@ -1,13 +1,13 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
 Each source (``attention_sm90.cu``: the forwards K1, K2 and K2(d), the
-8-bit cache read, one TMA + wgmma program; ``attention_bwd_sm90.cu``: K5,
-the fused CA backward, a TMA + wgmma program; ``attention.cu``: the WMMA
-program of K6, two heads per block; ``attention_bwd.cu``: the WMMA CA
-backwards K3, K4; ``probe_fp8.cu``: the fp8 probe kernels;
-``ln_matmul.cu``: K7, LayerNorm + matmul) is compiled with ``nvcc`` at
-first use into its own shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds), keyed on a hash of the source,
+8-bit cache read, one TMA + wgmma program; ``attention_bwd_sm90.cu``: the
+CA backwards K3 (dQ), K4 (dK|dV) and K5 (both), TMA + wgmma programs;
+``attention.cu``: the WMMA program of K6, two heads per block;
+``probe_fp8.cu``: the fp8 probe kernels; ``ln_matmul.cu``: K7, LayerNorm +
+matmul) is compiled with ``nvcc`` at first use into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+bound by ``ENTRIES``, and keyed on a hash of the source,
 the shared headers and the flags, under ``build/kernels/`` at the root of
 the checkout. The sources are compiled in parallel, one ``nvcc`` each, and
 the libraries loaded with ``ctypes``. Nothing is built or loaded when this
@@ -34,8 +34,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "attention_sm90.cu", _CSRC / "attention_bwd_sm90.cu",
-           _CSRC / "attention.cu", _CSRC / "attention_bwd.cu",
-           _CSRC / "probe_fp8.cu", _CSRC / "ln_matmul.cu")
+           _CSRC / "attention.cu", _CSRC / "probe_fp8.cu",
+           _CSRC / "ln_matmul.cu")
 HEADERS = (_CSRC / "common.cuh", _CSRC / "sm90.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,35 +101,38 @@ def build_log() -> str:
     return "".join(p.read_text() for p in logs if p.exists())
 
 
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the C entries of each source's library, with their argument types (every
+# one returns an int: 0, or the cudaError_t of a refused launch)
+ENTRIES = {
+    "attention_sm90": {
+        "must3r_sa_fwd_bf16": [_PTR] * 4 + [_I32] * 4 + [_PTR],
+        "must3r_ca_fwd_bf16": [_PTR] * 6 + [_I32] * 7 + [_PTR],
+        "must3r_ca_fwd_train_bf16": [_PTR] * 8 + [_I32] * 7 + [_PTR],
+        "must3r_ca_fwd_q8": [_PTR] * 9 + [_I32] * 8 + [_PTR]},
+    "attention_bwd_sm90": {
+        "must3r_ca_bwd_fused_bf16": [_PTR] * 11 + [_I32] * 7 + [_PTR],
+        "must3r_ca_bwd_dkv_bf16": [_PTR] * 10 + [_I32] * 7 + [_PTR],
+        "must3r_ca_bwd_dq_bf16": [_PTR] * 10 + [_I32] * 7 + [_PTR]},
+    "attention": {
+        "must3r_ca_fwd_2h_bf16": [_PTR] * 4 + [_I32] * 7 + [_PTR]},
+    "probe_fp8": {
+        "must3r_fp8_to_bf16_x2": [_PTR] * 2 + [_I32] + [_PTR],
+        "must3r_fp8_dequant_dot": [_PTR] * 3 + [_I32] * 3 + [_PTR]},
+    "ln_matmul": {
+        "must3r_ln_matmul_bf16": [_PTR] * 5 + [_I32] * 3 + [_PTR]},
+}
+
+
 def _load(stem: str) -> ctypes.CDLL:
     """The library of ``csrc/<stem>.cu`` (every source is built first)."""
     if not _libs:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        sm90, bwd90, fwd, bwd, fp8, ln = (ctypes.CDLL(str(p))
-                                          for p in build())
-        sm90.must3r_sa_fwd_bf16.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        sm90.must3r_ca_fwd_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-        sm90.must3r_ca_fwd_train_bf16.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
-        sm90.must3r_ca_fwd_q8.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
-        bwd90.must3r_ca_bwd_fused_bf16.argtypes = ([ptr] * 11 + [i32] * 7
-                                                   + [ptr])
-        fwd.must3r_ca_fwd_2h_bf16.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-        bwd.must3r_ca_bwd_dq_bf16.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-        bwd.must3r_ca_bwd_dkv_bf16.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-        fp8.must3r_fp8_to_bf16_x2.argtypes = [ptr] * 2 + [i32] + [ptr]
-        fp8.must3r_fp8_dequant_dot.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
-        ln.must3r_ln_matmul_bf16.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
-        for fn in (sm90.must3r_sa_fwd_bf16, sm90.must3r_ca_fwd_bf16,
-                   sm90.must3r_ca_fwd_train_bf16, sm90.must3r_ca_fwd_q8,
-                   bwd90.must3r_ca_bwd_fused_bf16,
-                   fwd.must3r_ca_fwd_2h_bf16,
-                   bwd.must3r_ca_bwd_dq_bf16, bwd.must3r_ca_bwd_dkv_bf16,
-                   fp8.must3r_fp8_to_bf16_x2, fp8.must3r_fp8_dequant_dot,
-                   ln.must3r_ln_matmul_bf16):
-            fn.restype = i32
-        _libs.update(attention_sm90=sm90, attention_bwd_sm90=bwd90,
-                     attention=fwd, attention_bwd=bwd, probe_fp8=fp8,
-                     ln_matmul=ln)
+        for src, path in zip(SOURCES, build()):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in ENTRIES[src.stem].items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, _I32
+            _libs[src.stem] = lib
     return _libs[stem]
 
 
@@ -329,14 +332,17 @@ ca_fwd_q8.launches = 0
 def ca_bwd_dq(q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
               ext=None) -> torch.Tensor:
     """K3: dQ [B, G, N, H, Dh] bf16 of the CA, from the forward's lse and
-    delta = rowsum(dO * O) (both fp32 [B, G, H, N])."""
+    delta = rowsum(dO * O) (both fp32 [B, G, H, N]). The TMA + wgmma
+    program of ``csrc/attention_bwd_sm90.cu`` that owns query rows (the
+    rows per block by :func:`sa_fwd`'s rule): dQ stays in registers across
+    the key loop and is written once, so it is bitwise reproducible."""
     b, g, n, h, dh, s_cap, kv_len = _check_ca(
         "ca_bwd_dq", q, kv, labels, q_self, q_upper, kv_len, ext)
     _check_bwd("ca_bwd_dq", q, lse, delta, dout)
     dq = torch.empty_like(q)
     if q.numel():
         with torch.cuda.device(q.device):
-            err = _load("attention_bwd").must3r_ca_bwd_dq_bf16(
+            err = _load("attention_bwd_sm90").must3r_ca_bwd_dq_bf16(
                 q.data_ptr(), kv.data_ptr(), labels.data_ptr(),
                 q_self.data_ptr(), q_upper.data_ptr(), _ptr(ext),
                 lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
@@ -353,14 +359,15 @@ ca_bwd_dq.launches = 0
 def ca_bwd_dkv(q, kv, labels, q_self, q_upper, kv_len, lse, delta, dout,
                ext=None) -> torch.Tensor:
     """K4: dK|dV [B, H, S, 2*Dh] bf16 of one cache layer, summed over the G
-    images of the step; keys at or past kv_len get 0."""
+    images of the step; keys at or past kv_len get 0. K5's program
+    (:func:`ca_bwd_fused`) without its dQ."""
     b, g, n, h, dh, s_cap, kv_len = _check_ca(
         "ca_bwd_dkv", q, kv, labels, q_self, q_upper, kv_len, ext)
     _check_bwd("ca_bwd_dkv", q, lse, delta, dout)
     dkv = torch.empty_like(kv)
     if kv.numel():
         with torch.cuda.device(q.device):
-            err = _load("attention_bwd").must3r_ca_bwd_dkv_bf16(
+            err = _load("attention_bwd_sm90").must3r_ca_bwd_dkv_bf16(
                 q.data_ptr(), kv.data_ptr(), labels.data_ptr(),
                 q_self.data_ptr(), q_upper.data_ptr(), _ptr(ext),
                 lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),

@@ -4,7 +4,7 @@ PyTorch version beside it.
 
 * :func:`self_attention` -- full (unmasked) per-image self-attention,
   counterpart of ``must3r_tpu.ops.attention.self_attention``. Kernel K1
-  (``csrc/attention.cu``) replaces the TPU kernel ``_sa_pallas``. Where a
+  (``csrc/attention_sm90.cu``) replaces the TPU kernel ``_sa_pallas``. Where a
   gradient is needed, the backward recomputes through the plain version
   (as ``_sa_hybrid_bwd`` does through ``_sa_chunked``; there is no SA
   backward kernel).
@@ -23,7 +23,8 @@ PyTorch version beside it.
   (``_MemoryCA``) computes ``delta = rowsum(dO * O)`` in fp32 and routes as
   the JAX package does, by ``_fold_stripe(G, N)``: K5 ``ca_bwd_fused``
   (replaces ``_ca_bwd_fused_pallas``) where it holds, else K3 ``ca_bwd_dq``
-  + K4 ``ca_bwd_dkv`` (``_ca_bwd_dq_pallas`` + ``_ca_bwd_dkv_pallas``).
+  + K4 ``ca_bwd_dkv`` (``_ca_bwd_dq_pallas`` + ``_ca_bwd_dkv_pallas``); all
+  three are TMA + wgmma programs of ``csrc/attention_bwd_sm90.cu``.
 
 ``impl``: ``None`` launches the kernels for a CUDA tensor and runs the plain
 versions for a CPU tensor; ``"plain"`` forces the plain versions (tests and

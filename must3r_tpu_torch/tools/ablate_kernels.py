@@ -42,7 +42,6 @@ from must3r_tpu_torch.tools.timing import device_ms
 SEED = 0
 ABLATE_DIR = _kernels.BUILD_DIR.parent / "ablate"
 Q8, K5 = "attention_sm90", "attention_bwd_sm90"
-ENTRIES = {Q8: "must3r_ca_fwd_q8", K5: "must3r_ca_bwd_fused_bf16"}
 
 # the edits, each (text of the source, its replacement); every text must
 # occur exactly once
@@ -145,7 +144,8 @@ def build_variants(names) -> dict:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_TARGS = re.compile(r"(attn_fwd_sm90|ca_bwd_fused_sm90)I((?:L[bi]\d+E)+)E")
+_TARGS = re.compile(
+    r"(attn_fwd_sm90|ca_bwd_fused_sm90|ca_bwd_dq_sm90)I((?:L[bi]\d+E)+)E")
 
 
 def ptxas_report(log: str, keep=lambda name: True) -> dict:
@@ -176,21 +176,23 @@ def ptxas_report(log: str, keep=lambda name: True) -> dict:
 
 
 # the kernels whose registers are reported: the int8 K2(d) of the render
-# and update (no STATS, no EXT; 64- and 192-row blocks), and K5
-REPORTED = ("attn_fwd_sm90<1, 0, 0, 1,", "ca_bwd_fused_sm90<")
+# and update (no STATS, no EXT; 64- and 192-row blocks), K5 and K4 (flags
+# EXT, DQ) and K3 (EXT, NC), whose library the K5 variants rebuild
+REPORTED = ("attn_fwd_sm90<1, 0, 0, 1,", "ca_bwd_fused_sm90<",
+            "ca_bwd_dq_sm90<")
 
 
 def _load_variant(stem: str, path: Path):
     lib = ctypes.CDLL(str(path))
-    base = getattr(_kernels._load(stem), ENTRIES[stem])
-    fn = getattr(lib, ENTRIES[stem])
-    fn.argtypes, fn.restype = base.argtypes, base.restype
+    for name, argtypes in _kernels.ENTRIES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
 def _timed(stem, lib, call):
     """(output, device ms) of ``call`` with ``stem``'s library swapped."""
-    saved = _kernels._libs[stem]
+    saved = _kernels._load(stem)
     _kernels._libs[stem] = lib
     try:
         out = call()

@@ -49,18 +49,18 @@ from must3r_tpu_torch.engine.inference import (InferenceCore,
 IMPLS = {"kernel": None, "plain": "plain"}
 # the port's attention kernels by (demangled) name, each group with the
 # pattern its names match: K1, K2 and K2(d) (int8, fp8) of the TMA + wgmma
-# program (template flags CA, STATS, EXT, QUANT, NC), K5 (the TMA + wgmma
-# backward), K6 (WMMA), K3 and K4 (WMMA)
+# forward program (template flags CA, STATS, EXT, QUANT, NC); K5 and K4 of
+# the TMA + wgmma key-block backward (flags EXT, DQ: K4 is DQ = false); K3,
+# the TMA + wgmma query-block backward; K6 (WMMA)
 KERNEL_GROUPS = (
     ("attn_fwd_sm90<false", r"attn_fwd_sm90<false"),
     ("attn_fwd_sm90<true", r"attn_fwd_sm90<true, \w+, \w+, 0,"),
     ("attn_fwd_sm90 q8 int8", r"attn_fwd_sm90<true, \w+, \w+, 1,"),
     ("attn_fwd_sm90 q8 fp8", r"attn_fwd_sm90<true, \w+, \w+, 2,"),
-    ("ca_bwd_fused_sm90", r"ca_bwd_fused_sm90<"),
-    ("ca_fwd_2h_kernel", r"ca_fwd_2h_kernel"),
-    ("ca_bwd_dq_kernel", r"ca_bwd_dq_kernel"),
-    ("ca_bwd_kv_kernel<64, false", r"ca_bwd_kv_kernel<64, false"),
-    ("ca_bwd_kv_kernel<64, true", r"ca_bwd_kv_kernel<64, true"))
+    ("ca_bwd_fused_sm90", r"ca_bwd_fused_sm90<\w+, true>"),
+    ("ca_bwd_fused_sm90 dkv", r"ca_bwd_fused_sm90<\w+, false>"),
+    ("ca_bwd_dq_sm90", r"ca_bwd_dq_sm90<"),
+    ("ca_fwd_2h_kernel", r"ca_fwd_2h_kernel"))
 N_VIEWS = 10
 HW = (384, 512)
 PAIRS = 10

@@ -26,8 +26,11 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 DH = 64
 
 # (b, g, n, h, s, live, q_self, q_upper): g = 2 with n <= 1024 is a folded
-# shape in the JAX routing (fused backward), g = 1 is not (dq + dkv)
+# shape in the JAX routing (fused backward), g = 1 is not (dq + dkv);
+# "blocks_g1" spans two of the JAX kernels' 512-key blocks, several 128-key
+# blocks of K4 and a partial 64-row tile of K3
 CASES = {
+    "blocks_g1": (1, 1, 130, 1, 1024, 700, [[1]], [[INT32_MAX]]),
     "update_g1": (1, 1, 24, 2, 64, 40, [[1]], [[INT32_MAX]]),
     "causal_g2": (1, 2, 20, 2, 64, 48, [[-2, 1]], [[2, 1]]),
     "batch2_g2": (2, 2, 17, 2, 32, 29, [[0, 2], [3, -2]],

@@ -186,10 +186,40 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(dev, bad):
 # The TMA + wgmma program of K1 and K2 (csrc/attention_sm90.cu) at its edges
 # ---------------------------------------------------------------------------
 
+def test_every_bound_entry_is_defined_with_its_arguments():
+    """Each C entry that ``_kernels._load`` binds (``ENTRIES``) is defined in
+    the ``extern "C"`` block of its source in ``SOURCES``, with one parameter
+    for each of its argtypes, a pointer where a pointer is declared and an
+    int where an int is; the blocks define nothing else (runs on the CPU: a
+    stale binding would otherwise show only on the card)."""
+    import ctypes
+    import re
+
+    from must3r_tpu_torch.ops import _kernels
+
+    assert sorted(src.stem for src in _kernels.SOURCES) == \
+        sorted(_kernels.ENTRIES)
+    for src in _kernels.SOURCES:
+        text = src.read_text()
+        blocks = re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text,
+                            re.S)
+        assert len(blocks) == 1, src.name
+        defined = {
+            name: ["ptr" if "*" in p else p.split()[0]
+                   for p in params.split(",")]
+            for name, params in re.findall(r"\bint (\w+)\(([^)]*)\)\s*\{",
+                                           blocks[0])}
+        want = {name: ["ptr" if t is ctypes.c_void_p else "int"
+                       for t in types]
+                for name, types in _kernels.ENTRIES[src.stem].items()}
+        assert defined == want, src.name
+
+
 def test_profile_groups_name_the_kernels_of_each_program():
     """The profile tools sum device time by kernel name: K1, K2 and K2(d)
-    (int8, fp8) run the TMA + wgmma forward program, K5 the TMA + wgmma
-    backward, K3 / K4 / K6 the WMMA ones (runs on the CPU)."""
+    (int8, fp8) run the TMA + wgmma forward program, K5 and K4 (its DQ =
+    false) the key-block backward, K3 the query-block backward, K6 the WMMA
+    program (runs on the CPU)."""
     from must3r_tpu_torch.tools.profile_offline import kernel_group
 
     fwd = "void (anonymous namespace)::attn_fwd_sm90<{}>(CUtensorMap_st, ...)"
@@ -198,12 +228,12 @@ def test_profile_groups_name_the_kernels_of_each_program():
             (fwd.format("true, true, true, 0, 1"), "attn_fwd_sm90<true"),
             (fwd.format("true, false, false, 1, 3"), "attn_fwd_sm90 q8 int8"),
             (fwd.format("true, true, true, 2, 1"), "attn_fwd_sm90 q8 fp8"),
-            ("void (anonymous namespace)::ca_bwd_fused_sm90<true, 2>"
+            ("void (anonymous namespace)::ca_bwd_fused_sm90<true, true>"
              "(CUtensorMap_st, ...)", "ca_bwd_fused_sm90"),
-            ("void (anonymous namespace)::ca_bwd_kv_kernel<64, false>(...)",
-             "ca_bwd_kv_kernel<64, false"),
-            ("void (anonymous namespace)::ca_bwd_dq_kernel<64, true>(...)",
-             "ca_bwd_dq_kernel"),
+            ("void (anonymous namespace)::ca_bwd_fused_sm90<false, false>"
+             "(CUtensorMap_st, ...)", "ca_bwd_fused_sm90 dkv"),
+            ("void (anonymous namespace)::ca_bwd_dq_sm90<true, 3>"
+             "(CUtensorMap_st, ...)", "ca_bwd_dq_sm90"),
             ("void (anonymous namespace)::ca_fwd_2h_kernel<64>(...)",
              "ca_fwd_2h_kernel"),
             ("nvjet_tss_192x192_64x4_2x1_v_bz_coopB_TNN", "matrix products"),
@@ -280,17 +310,22 @@ ptxas info    : Used 128 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__d3_17_attention_sm90_cu_ee13attn_fwd_sm90ILb1ELb1ELb0ELi0ELi1EEEv14CUtensorMap_st' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__b2_21_attention_bwd_sm90_cu_68017ca_bwd_fused_sm90ILb1EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__b2_21_attention_bwd_sm90_cu_68017ca_bwd_fused_sm90ILb1ELb1EEEv14CUtensorMap_st' for 'sm_90a'
     40 bytes stack frame, 48 bytes spill stores, 84 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__b2_21_attention_bwd_sm90_cu_68017ca_bwd_dq_sm90ILb0ELi1EEEv14CUtensorMap_st' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
 """
     got = ptxas_report(log, lambda k: k.startswith(REPORTED))
     assert got == {
         "attn_fwd_sm90<1, 0, 0, 1, 3>": dict(spill_stores=0, spill_loads=0,
                                              registers=128),
-        "ca_bwd_fused_sm90<1>": dict(spill_stores=48, spill_loads=84,
-                                     registers=168)}
-    assert len(ptxas_report(log)) == 3
+        "ca_bwd_fused_sm90<1, 1>": dict(spill_stores=48, spill_loads=84,
+                                        registers=168),
+        "ca_bwd_dq_sm90<0, 1>": dict(spill_stores=0, spill_loads=0,
+                                     registers=128)}
+    assert len(ptxas_report(log)) == 4
 
 
 def _poison_past(kv, kv_len):
@@ -397,6 +432,12 @@ TRAIN_CASES = [
     (1, 2, 96, 200, 192, [-2, 1], [2, 1], 0.1),         # init pair, ragged S
     (1, 5, 49, 320, 245, [5, 6, 7, 8, 9], [5, 6, 7, 8, 9], 0.1),  # 5 views
     (1, 1, 300, 256, 256, [-2], [INT32_MAX], 0.0),      # flattened render
+    # the edges of K3 / K4's tiling: G = 2 at N > 1,024 (no fold, so K3 + K4
+    # run with G > 1), kv_len = S off the 64 / 128 grid, a ragged kv_len
+    # with a dense dropout mask (kv_len 0: the slots-past-kv_len test)
+    (1, 2, 1100, 2400, 2300, [0, -2], [INT32_MAX, 1], 0.1),
+    (2, 1, 130, 200, 200, [1], [INT32_MAX], 0.1),
+    (1, 1, 64, 384, 321, [-2], [INT32_MAX], 0.3),
 ]
 
 
@@ -476,7 +517,54 @@ def test_ca_bwd_kernels_empty_rows_and_dead_keys_are_zero(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g,n,fused", [(1, 96, False), (2, 96, True)])
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 65, 130, 1000])
+def test_ca_bwd_dq_dkv_slots_past_kv_len_change_nothing(dev, kv_len):
+    """A 1,100-slot layer, every slot labelled: slots at or past kv_len
+    hold NaN and 1e30, and K3's dq and K4's dK|dV are bitwise those of the
+    same call with the slots zeroed (both kernels sum in a fixed order), with
+    and without a dropout mask; dK|dV is exactly 0 past kv_len, and both
+    match their plain versions (an output whose plain version is 0 must be
+    exactly 0, as with kv_len 0). With one key (kv_len 1) p = 1 and ds =
+    dO.v - delta = 0 in exact arithmetic, so dq and dk are rounding noise of
+    a cancellation and only dv is held to the plain version there."""
+    from must3r_tpu_torch.ops import _kernels
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    s_cap = 1100
+    q = _randn(gen, dev, 1, 1, 150, 12, DH)
+    dout = _randn(gen, dev, 1, 1, 150, 12, DH)
+    kv = _randn(gen, dev, 1, 12, s_cap, 2 * DH)
+    kv[:, :, kv_len:] = 0
+    bad = kv.clone()
+    bad[:, :, kv_len:, 0::2] = float("nan")
+    bad[:, :, kv_len:, 1::2] = 1e30
+    lab = _labels(dev, s_cap, s_cap, 250)
+    qs = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    qu = torch.full((1, 1), INT32_MAX, dtype=torch.int32, device=dev)
+    ext = torch.rand(1, 1, s_cap, generator=gen, device=dev) < 0.1
+    for e in (None, ext):
+        _, lse, delta = _plain_stats(q, kv, lab, qs, qu, kv_len, e, dout)
+        args = [q, kv, lab, qs, qu, kv_len, lse, delta, dout, e]
+        dq, dkv = _kernels.ca_bwd_dq(*args), _kernels.ca_bwd_dkv(*args)
+        args[1] = bad
+        assert torch.equal(dq, _kernels.ca_bwd_dq(*args))
+        assert torch.equal(dkv, _kernels.ca_bwd_dkv(*args))
+        assert float(dkv[:, :, kv_len:].abs().max()) == 0.0
+        args[1] = kv
+        pairs = [(dkv[..., DH:], tatt._ca_bwd_dkv_plain(*args)[..., DH:])]
+        if kv_len != 1:
+            pairs += [(dq, tatt._ca_bwd_dq_plain(*args)),
+                      (dkv, tatt._ca_bwd_dkv_plain(*args))]
+        for got, want in pairs:
+            if float(want.abs().max()) == 0.0:
+                assert float(got.abs().max()) == 0.0
+            else:
+                _assert_matches_plain(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,fused", [(1, 96, False), (2, 96, True),
+                                       (1, 130, False), (2, 1100, False)])
 def test_ca_function_on_cuda_launches_the_kernels(dev, g, n, fused):
     """Autograd through the CA on CUDA tensors: K2 with LSE forward, then
     K5 where the JAX routing folds, else K3 + K4; the gradients match the
