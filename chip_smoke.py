@@ -43,20 +43,24 @@ non-zero:
      which must not move the output), a row that attends nothing (= 0), the
      LSE. The library yardstick is SDPA on the dequantized bf16 cache.
   B'''. The fp8 probe: fp8 -> bf16 conversion exact, the dequant dot within
-     fp32 summation noise; its entry point run with counted launches.
-  B''''. The microbenchmark kernels: K6 (``ca_fwd_2h``, two heads per block)
-     against its plain version (phase B's bounds) and against K2 at the
-     three cases of ``scripts/bench_ca_kernel.py`` (render N = S = 7680; one
-     view against a 64-keyframe memory, S = 49152; the same with kv_len
-     9216), library SDPA with a boolean mask; K7 (``ln_matmul``) against its
-     plain version at the three cases of ``scripts/bench_fused_chain.py``
-     with phase B's bound plus one bf16 ulp of max|plain| (its output is a
-     768-term fp32 sum of bf16 products rounded to bf16, after the
-     normalised rows were rounded to bf16: an ulp of difference in one of
-     those roundings is not a fault), library ``F.layer_norm`` +
-     ``torch.matmul`` (two calls). Then ``tools/bench_ca_kernel.py --check``
-     and ``tools/bench_fused_chain.py`` as their users run them, counted:
-     their launches must equal the tools' schedules.
+     fp32 summation noise, each timed beside the fewest PyTorch calls of the
+     same function (``x.to(torch.bfloat16) * 2``; ``torch.matmul`` of x and
+     w in fp32); its entry point run with counted launches.
+  B''''. The microbenchmark kernels: K6 (``ca_fwd_2h``, the head pair of the
+     TMA + wgmma forward program of ``csrc/attention_sm90.cu``) against its
+     plain version (phase B's bounds) and against K2 at the three cases of
+     ``scripts/bench_ca_kernel.py`` (render N = S = 7680; one view against
+     a 64-keyframe memory, S = 49152; the same with kv_len 9216), library
+     SDPA with a boolean mask; K7 (``ln_matmul``, the TMA + wgmma program of
+     ``csrc/ln_matmul_sm90.cu``) against its plain version at the three
+     cases of ``scripts/bench_fused_chain.py`` with phase B's bound plus one
+     bf16 ulp of max|plain| (its output is a 768-term fp32 sum of bf16
+     products rounded to bf16, after the normalised rows were rounded to
+     bf16: an ulp of difference in one of those roundings is not a fault),
+     library ``F.layer_norm`` + ``torch.matmul`` (two calls), and
+     ``torch.matmul`` alone beside it. Then ``tools/bench_ca_kernel.py
+     --check`` and ``tools/bench_fused_chain.py`` as their users run them,
+     counted: their launches must equal the tools' schedules.
   D. The training path at full width, bf16, seeded random weights: D1 three
      ``make_train_step`` steps of MUSt3R_512 (batch 2, 4 views of 512 x 384,
      update steps of 2, 1, 1 views, 2 rendered, remat, dropout 0.1) whose
@@ -79,7 +83,7 @@ The last three lines are the card's name and power limit, every kernel's
 JSON record (launches summed over the counted runs of C, D, E, the probe
 and the bench tools, device times at one main-path shape each, bound and
 library time) and ``{"ok": true, "device": {...}}``. About two minutes on
-an H100, the build (six sources, one nvcc each, in parallel) included.
+an H100, the build (four sources, one nvcc each, in parallel) included.
 """
 
 import json
@@ -662,22 +666,28 @@ def phase_probe(dev):
         raise AssertionError(f"fp8 probe kernels disagree: {r}")
     (m, k), n = x.shape, w.shape[1]
     rec = {}
-    for name, kern, plain, err, work in (
+    # the library: the fewest PyTorch calls of each function (e4m3 -> fp32
+    # is exact, as e4m3 -> bf16 is)
+    for name, kern, plain, library, err, work in (
             ("fp8_to_bf16_x2", lambda: fp8.fp8_to_bf16_x2(x),
              lambda: fp8.fp8_to_bf16_x2(x, impl="plain"),
+             lambda: x.to(torch.bfloat16) * 2,
              r["conv_max_abs_err"], bound(m * k, m * k * (1 + 2))),
             ("fp8_dequant_dot", lambda: fp8.fp8_dequant_dot(x, w),
              lambda: fp8.fp8_dequant_dot(x, w, impl="plain"),
+             lambda: torch.matmul(x.float(), w.float()),
              r["dot_max_abs_err"],
              bound(2.0 * m * k * n, m * k + k * n * 2 + m * n * 4))):
         rec[name] = dict(max_abs_err=err, ms=device_ms(kern, 50),
                          plain_ms=events_ms(plain, 50),
-                         library_ms=None,
+                         library_ms=device_ms(library, 50),
                          bound_ms=work["bound_ms"],
                          bound_by=work["bound_by"])
         log(f"[B'''] {name} {list(x.shape)}: kernel {rec[name]['ms']:.4f} ms"
             f" (events over Python launches {events_ms(kern, 50):.4f})"
-            f"  plain {rec[name]['plain_ms']:.4f} ms  bound "
+            f"  plain {rec[name]['plain_ms']:.4f} ms  library "
+            f"{rec[name]['library_ms']:.4f} ms (kernel / library "
+            f"{rec[name]['ms'] / rec[name]['library_ms']:.2f})  bound "
             f"{work['bound_ms']:.6f} ms ({work['bound_by']})")
     _, counts = _counted(lambda: probe_fp8.main(["--device", str(dev)]))
     log(f"[B'''] python -m must3r_tpu_torch.tools.probe_fp8: launches "
@@ -706,9 +716,9 @@ def phase_bench_kernels(dev):
     [1, 1, N, 12, 64], a 12-layer cache of S slots, layer 3, labels 0 below
     kv_len and -1 past it), K7 against its plain version at the three B8
     cases (x [M, 768], random g and b, bound + 1 bf16 ulp), each timed beside
-    its library yardstick; then both bench tools' main(), each with the
-    launch counts set to 0 just before and read just after: they must equal
-    the tools' schedules."""
+    its library yardstick (and K7 beside ``torch.matmul`` alone); then both
+    bench tools' main(), each with the launch counts set to 0 just before
+    and read just after: they must equal the tools' schedules."""
     import torch.nn.functional as F
 
     from must3r_tpu_torch.ops import bench_kernels as bk
@@ -770,6 +780,12 @@ def phase_bench_kernels(dev):
                  tag="B''''",
                  library_label=" (F.layer_norm + torch.matmul, two calls)",
                  ulp_allowance=True)
+        r = rows_ln[-1]
+        r["matmul_ms"] = device_ms(lambda: torch.matmul(x, w))
+        log(f"[B''''] ln_matmul {name}: torch.matmul alone "
+            f"{r['matmul_ms']:.4f} ms; K7 / matmul = "
+            f"{r['ms'] / r['matmul_ms']:.3f}, K7 / library = "
+            f"{r['ms'] / r['library_ms']:.3f}")
 
     # the bench tools as their users run them, counted
     per_timing = WARMUP + REPS
@@ -1324,12 +1340,11 @@ def main():
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    sm90, bwd90, fwd, fp8, ln = (
+    sm90, bwd90, fp8, ln = (
         "must3r_tpu_torch/csrc/attention_sm90.cu",
         "must3r_tpu_torch/csrc/attention_bwd_sm90.cu",
-        "must3r_tpu_torch/csrc/attention.cu",
         "must3r_tpu_torch/csrc/probe_fp8.cu",
-        "must3r_tpu_torch/csrc/ln_matmul.cu")
+        "must3r_tpu_torch/csrc/ln_matmul_sm90.cu")
     ca_all = ca + train_k["ca_fwd_train"]
     record = {"kernels": [
         entry("sa_fwd", sm90, "must3r_tpu/ops/attention.py:213", sa, 0),
@@ -1346,7 +1361,8 @@ def main():
               [probe["fp8_to_bf16_x2"]], 0),
         entry("fp8_dequant_dot", fp8, "scripts/probe_fp8.py:41",
               [probe["fp8_dequant_dot"]], 0),
-        entry("ca_fwd_2h", fwd, "scripts/bench_ca_kernel.py:25", rows_2h, 0),
+        entry("ca_fwd_2h", sm90, "scripts/bench_ca_kernel.py:25", rows_2h,
+              0),
         entry("ln_matmul", ln, "scripts/bench_fused_chain.py:38", rows_ln,
               0),
     ]}

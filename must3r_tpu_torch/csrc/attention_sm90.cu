@@ -25,7 +25,16 @@
 //               s = (q . k_code) * softmax_scale * kscale[j]; the row max
 //               and sum take p before the v scale, and p * vscale[j] is
 //               rounded to bf16 for P.V. It composes with STATS and EXT.
-// The two-heads microbenchmark K6 stays on the WMMA program of attention.cu.
+//   K6 ca_fwd_2h : two heads per block, template argument HP = 2. Replaces
+//               _ca_pallas_2h of scripts/bench_ca_kernel.py, the
+//               microbenchmark's variant of _ca_pallas that runs a head pair
+//               over one shared label DMA: one image of queries (q/out [B,
+//               1, N, H, Dh], H even), the whole bf16 cache [L, B, H, S,
+//               2*Dh] with a layer index (the layer's base is kv + layer * B
+//               * H * S * 2*Dh elements), and the mask j < kv_len && label >=
+//               0 alone: K2's predicate with q_self = -1 and q_upper =
+//               INT32_MAX as compile-time constants (no ext, no LSE, no
+//               8-bit cache).
 //
 // What bounds it: at every main-path shape (N = 768 for SA; 768..7680 query
 // rows against 1536..7680 keys for CA) the work is ~4*Dh flops per (query,
@@ -35,17 +44,19 @@
 // per score on the SFU (16 a clock per SM) against 256 flops per score on
 // the tensor cores, so the two have to overlap.
 //
-// The block program. A block owns NC * 64 query rows of one (batch*image,
-// head), NC = 1 or 3: NC consumer warpgroups of 64 rows each, then one
-// producer warpgroup whose first warp does all the loading (setmaxnreg
-// gives the rest of its registers to the consumers).
+// The block program. A block owns NC / HP * 64 query rows of one
+// batch*image and HP heads (HP = 1: NC = 1 or 3; HP = 2, K6: NC = 2): NC
+// consumer warpgroups of 64 rows each (warpgroup wg takes head h + wg % HP
+// and rows wg / HP), then one producer warpgroup whose first warp does all
+// the loading (setmaxnreg gives the rest of its registers to the consumers).
 //   - The producer loads the block's Q tiles once, then walks the key tiles
-//     (64 keys each) through a ring of kStages stages. Per stage it waits
+//     (64 keys each) through a ring of kRing stages. Per stage it waits
 //     for "empty", computes the tile's allow vector from the labels (the
-//     block belongs to one image, so one 64-bit mask serves all its rows),
-//     stores it beside the stage and, unless the mask is 0 (the tile is
-//     skipped), starts two TMA loads (K and V, 64 x 64 bf16 each, 128-byte
-//     swizzle) that complete on the stage's "full" mbarrier.
+//     block belongs to one image, so one 64-bit mask serves all its rows
+//     and both heads of a pair: K6's shared label tile), stores it beside
+//     the stage and, unless the mask is 0 (the tile is skipped), starts two
+//     TMA loads per head (K and V, 64 x 64 bf16 each, 128-byte swizzle)
+//     that complete on the stage's "full" mbarrier.
 //   - QUANT: the two TMA loads bring 64 x 64 bytes of codes each
 //     (unswizzled) into a ring of code buffers of their own (full ->
 //     code_empty), with the tile's mask. Warps 1..3 of the producer
@@ -84,7 +95,10 @@
 //     wgmma with A from registers and V (key-major, so B is MN-major: the
 //     transposed-B flag) from shared memory. O stays in fp32 registers until
 //     the epilogue, which writes bf16 rows (and the LSE) straight to global
-//     memory.
+//     memory; K6's writes its tile into its Q tile (read no more) with the
+//     128-byte swizzle and stores it by TMA in whole 128-byte rows (4-byte
+//     stores write 8 rows x 16 bytes a warp instruction, half a 32-byte
+//     sector each: K6 was 3.5 % slower with them at the render on an H100).
 //   - The two products overlap the softmax, as in FlashAttention-3: a tile's
 //     S = Q K^T and the previous tile's O += P V go out together, the
 //     softmax of the new S runs while P V is still on the tensor cores, and
@@ -92,19 +106,24 @@
 //     its stage is released one tile late; a skipped tile first finishes the
 //     pending P V, so that no stage stays held while the ring comes round.
 //
-// Tiles, stages, shared memory: 64 keys a tile, kStages = 4; per block NC *
-// 8 KB of Q + 4 * 16 KB of K/V (QUANT: + 4 * 8 KB of codes + 4 * 512 bytes
-// of scales) + masks and barriers, on a 1 KB alignment: 75,776 bytes (NC =
-// 1) / 92,160 (NC = 3) of dynamic shared memory; QUANT 110,592 / 126,976.
-// Blocks per SM: 2 of 256 threads (NC = 1) or 1 of 512 (NC = 3), by
-// __launch_bounds__. Registers (-Xptxas -v, written to
-// build/kernels/libattention_sm90_*.log): 128 a thread, the launch bound's,
-// which is what ptxas allocates every warp's code within; setmaxnreg then
-// gives the producer 24 (QUANT: 56, for the converters) and the consumers
-// the rest. The launch chooses NC from the grid (see launch()).
+// Tiles, stages, shared memory: 64 keys a tile, kStages = 4 (K6: 6 of twice
+// the size, 4 % faster than 4 at the render on an H100); per block NC * 8
+// KB of Q + stages * HP * 16 KB of K/V (QUANT: + 4 * 8 KB of codes + 4 *
+// 512 bytes of scales) + masks and barriers, on a 1 KB alignment: 75,776
+// bytes (NC = 1) / 92,160 (NC = 3) of dynamic shared memory; QUANT 110,592
+// / 126,976; K6 (NC = HP = 2) 215,040. Blocks per SM: 2 of 256 threads (NC =
+// 1), 1 of 384 (K6) or 1 of 512 (NC = 3), by __launch_bounds__. Registers
+// (-Xptxas -v, written to build/kernels/libattention_sm90_*.log): 128 a
+// thread (K6: 168), the launch bound's, which is what ptxas allocates every
+// warp's code within; setmaxnreg then gives the producer 24 (QUANT: 56, for
+// the converters) and the consumers the rest. The launch chooses NC from
+// the grid for K1 and K2 (see launch()); K6 always runs one 64-row tile of
+// a head pair a block (72 blocks for one image of 768 rows x 12 heads,
+// against K2's 144 of 64 rows: each SM then runs two consumer warpgroups
+// either way).
 //
-// Semantics kept from the WMMA program: a masked key's probability is
-// forced to 0 (not exp(-1e30 - m)), so a query row with no attended key
+// Semantics kept from the port's first kernels: a masked key's probability
+// is forced to 0 (not exp(-1e30 - m)), so a query row with no attended key
 // (every label masked, or kv_len == 0) returns 0, and its LSE is kEmptyLse
 // (+1e30). The Pallas kernel returns the mean of V there (ROADMAP queue C).
 
@@ -122,6 +141,7 @@ constexpr int kDh = 64;
 constexpr int kRows = 64;                   // query rows per consumer warpgroup
 constexpr int kKeys = 64;                   // keys per tile
 constexpr int kStages = 4;
+constexpr int kStagesPair = 6;              // K6: both heads' tiles a stage
 constexpr int kWG = 128;                    // threads per warpgroup
 constexpr int kTileBytes = 64 * kDh * 2;    // one 64 x 64 bf16 tile
 constexpr int kCodeBytes = 64 * kDh;        // one 64 x 64 tile of 8-bit codes
@@ -132,30 +152,33 @@ constexpr int kConverters = 3 * 32;         // warps 1..3 of the producer
 
 // Blocks per SM and the registers after setmaxnreg: the producer's and the
 // consumers' counts stay within what the launch bound gives the block
-// (65536 / blocks per SM; 128 a thread either way, which is also what ptxas
-// allocates within). With QUANT the producer warpgroup's spare warps
-// convert codes, and keep 56 a thread for it.
+// (65536 / blocks per SM; 128 a thread at NC = 1 or 3, 168 at NC = 2, which
+// is also what ptxas allocates within). With QUANT the producer warpgroup's
+// spare warps convert codes, and keep 56 a thread for it.
 template <int NC, int QUANT>
 struct Config {
   static constexpr int kThreads = (NC + 1) * kWG;
   static constexpr int kMinBlocks = NC == 1 ? 2 : 1;
   static constexpr int kProducerRegs = QUANT ? 56 : 24;
   static constexpr int kConsumerRegs =
-      NC == 1 ? (QUANT ? 200 : 232) : (QUANT ? 152 : 160);
-  static_assert(NC == 1 || NC == 3, "one or three consumer warpgroups");
+      NC == 1 ? (QUANT ? 200 : 232)
+              : NC == 2 ? 240 : (QUANT ? 152 : 160);
+  static_assert(NC >= 1 && NC <= 3, "one to three consumer warpgroups");
   static_assert(kProducerRegs * kWG + NC * kWG * kConsumerRegs <=
                     65536 / kMinBlocks,
                 "setmaxnreg must stay within the block's registers");
 };
 
-template <int NC, int QUANT>
+template <int NC, int QUANT, int HP>
 struct Smem {
-  static constexpr int kCodeStages = QUANT ? kStages : 1;
+  static constexpr int kRing = HP == 2 ? kStagesPair : kStages;
+  static constexpr int kCodeStages = QUANT ? kRing : 1;
   // 1 KB alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes,
-  // and the wgmma descriptors assume tiles start on that period
+  // and the wgmma descriptors assume tiles start on that period; a stage
+  // holds the K and V tiles of each of the block's HP heads
   alignas(1024) __nv_bfloat16 q[NC][kRows * kDh];
-  alignas(1024) __nv_bfloat16 k[kStages][kKeys * kDh];
-  alignas(1024) __nv_bfloat16 v[kStages][kKeys * kDh];
+  alignas(1024) __nv_bfloat16 k[kRing][HP][kKeys * kDh];
+  alignas(1024) __nv_bfloat16 v[kRing][HP][kKeys * kDh];
   // QUANT: a tile's codes as TMA wrote them (64 keys x 64 bytes, K and V)
   // in a ring of their own, with the tile's mask; the bf16 stage's k and v
   // scales, in the order the consumers read them: column 8j + 2 * quad + e
@@ -166,10 +189,10 @@ struct Smem {
   alignas(16) float scl[kCodeStages][QUANT ? 2 * kKeys : 4];
   uint64_t code_mask[kCodeStages];
   uint64_t code_empty[kCodeStages];         // QUANT: the codes were read
-  uint64_t mask[kStages];                   // bit j: key j0 + j attended
-  uint64_t full[kStages];                   // (QUANT: the codes arrived)
-  uint64_t conv[kStages];                   // QUANT: the stage is bf16
-  uint64_t empty[kStages];
+  uint64_t mask[kRing];                     // bit j: key j0 + j attended
+  uint64_t full[kRing];                     // (QUANT: the codes arrived)
+  uint64_t conv[kRing];                     // QUANT: the stage is bf16
+  uint64_t empty[kRing];
   uint64_t q_full;
 };
 
@@ -268,14 +291,16 @@ struct Softmax {
 //   2*Dh] (V at feature 64), keys = kv_len, the label predicate decides.
 //   QUANT != 0: that layer holds 8-bit codes (the map is UINT8, unswizzled,
 //   V at byte 64) and kv_scale [B, H, 2, S] its per-key k and v scales.
+//   HP = 2 (K6): blockIdx.y is a head pair, q_self / q_upper are not read.
 // Accumulator register d[4j + 2i + e] of a thread holds row
 // 16 * warp + lane / 4 + 8i and column 8j + 2 * (lane % 4) + e.
-template <bool CA, bool STATS, bool EXT, int QUANT, int NC>
+template <bool CA, bool STATS, bool EXT, int QUANT, int NC, int HP>
 __global__ void __launch_bounds__(Config<NC, QUANT>::kThreads,
                                   Config<NC, QUANT>::kMinBlocks)
 attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap omap,
               const float* __restrict__ kv_scale,
               const int32_t* __restrict__ labels,
               const int32_t* __restrict__ q_self,
@@ -283,21 +308,26 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
               const uint8_t* __restrict__ ext,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int G,
               int N, int H, int S, int n_keys, float scale) {
+  static_assert(HP == 1 ? NC != 2
+                        : HP == 2 && NC == 2 && CA && !STATS && !EXT &&
+                              QUANT == 0,
+                "a head pair (K6) is two consumer warpgroups of the bf16 CA");
   using C = Config<NC, QUANT>;
+  using Layout = Smem<NC, QUANT, HP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
-  Smem<NC, QUANT>& sm = *reinterpret_cast<Smem<NC, QUANT>*>(smem_raw + pad);
+  Layout& sm = *reinterpret_cast<Layout*>(smem_raw + pad);
 
   const int wg = threadIdx.x / kWG;
-  const int q0 = blockIdx.x * (NC * kRows);
-  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * (NC / HP * kRows);
+  const int h = blockIdx.y * HP;            // the block's (first) head
   const int bz = blockIdx.z;                // batch * G + image
   const int b = CA ? bz / G : bz;
   const int n_tiles = (n_keys + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < Layout::kRing; ++s) {
       mbar_init(&sm.full[s], 1);
       if (QUANT) {
         mbar_init(&sm.conv[s], kConverters);
@@ -320,10 +350,12 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         mbar_expect_tx(&sm.q_full, NC * kTileBytes);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          tma_load_4d(sm.q[c], &qmap, &sm.q_full, 0, h, q0 + c * kRows, bz);
+          tma_load_4d(sm.q[c], &qmap, &sm.q_full, 0, h + c % HP,
+                      q0 + c / HP * kRows, bz);
       }
-      const int qs = CA ? q_self[bz] : 0;
-      const int qu = CA ? q_upper[bz] : 0;
+      // K6 attends every live label: K2's predicate with these constants
+      const int qs = !CA ? 0 : HP == 1 ? q_self[bz] : -1;
+      const int qu = !CA ? 0 : HP == 1 ? q_upper[bz] : INT32_MAX;
       int stage = 0;
       uint32_t phase = 0;
       for (int t = 0; t < n_tiles; ++t) {
@@ -351,21 +383,27 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
               tma_load_4d(sm.vc[stage], &vmap, &sm.full[stage], kDh, j0, h,
                           b);
             } else if constexpr (CA) {
-              mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
-              tma_load_4d(sm.k[stage], &kmap, &sm.full[stage], 0, j0, h, b);
-              tma_load_4d(sm.v[stage], &vmap, &sm.full[stage], kDh, j0, h,
-                          b);
+              mbar_expect_tx(&sm.full[stage], 2 * HP * kTileBytes);
+#pragma unroll
+              for (int hp = 0; hp < HP; ++hp) {
+                tma_load_4d(sm.k[stage][hp], &kmap, &sm.full[stage], 0, j0,
+                            h + hp, b);
+                tma_load_4d(sm.v[stage][hp], &vmap, &sm.full[stage], kDh, j0,
+                            h + hp, b);
+              }
             } else {
               mbar_expect_tx(&sm.full[stage], 2 * kTileBytes);
-              tma_load_4d(sm.k[stage], &kmap, &sm.full[stage], 0, h, j0, b);
-              tma_load_4d(sm.v[stage], &vmap, &sm.full[stage], 0, h, j0, b);
+              tma_load_4d(sm.k[stage][0], &kmap, &sm.full[stage], 0, h, j0,
+                          b);
+              tma_load_4d(sm.v[stage][0], &vmap, &sm.full[stage], 0, h, j0,
+                          b);
             }
           } else {
             mbar_arrive(&sm.full[stage]);   // nothing attended: skip
           }
         }
         __syncwarp();
-        if (++stage == kStages) {
+        if (++stage == Layout::kRing) {
           stage = 0;
           phase ^= 1;
         }
@@ -408,27 +446,28 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
             }
             const int off = sw128_offset(r, c);
             *reinterpret_cast<uint4*>(
-                reinterpret_cast<uint8_t*>(sm.k[stage]) + off) = kb;
+                reinterpret_cast<uint8_t*>(sm.k[stage][0]) + off) = kb;
             *reinterpret_cast<uint4*>(
-                reinterpret_cast<uint8_t*>(sm.v[stage]) + off) = vb;
+                reinterpret_cast<uint8_t*>(sm.v[stage][0]) + off) = vb;
           }
           fence_proxy_async();              // the tiles are wgmma operands
         }
         mbar_arrive(&sm.code_empty[stage]);
         mbar_arrive(&sm.conv[stage]);
-        if (++stage == kStages) {
+        if (++stage == Layout::kRing) {
           stage = 0;
           phase ^= 1;
         }
       }
     }
   } else {
-    // ---------------- consumer warpgroup wg: 64 query rows ----------------
+    // ------- consumer warpgroup wg: 64 query rows of head h + wg % HP -------
     regs_inc<C::kConsumerRegs>();
     const int t = threadIdx.x % kWG;
     const int warp = t / 32;
     const int lane = t % 32;
     const int quad = lane % 4;
+    const int hw = wg % HP;                   // the head within the block
     const float sl2 = scale * kLog2e;         // scores to log2 units
 
     float o[32];
@@ -441,7 +480,7 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
     // O += P V of the pending tile alone, and its stage released
     auto finish_pv = [&]() {
       if (prev < 0) return;
-      const uint64_t dv = sw128_desc(sm.v[prev]);
+      const uint64_t dv = sw128_desc(sm.v[prev][hw]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk)
@@ -468,14 +507,14 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         float s[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) s[i] = 0.f;
-        const uint64_t dk = sw128_desc(sm.k[stage]);
+        const uint64_t dk = sw128_desc(sm.k[stage][hw]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kDh / 16; ++kk)
           wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
         wgmma_commit();
         if (prev >= 0) {
-          const uint64_t dv = sw128_desc(sm.v[prev]);
+          const uint64_t dv = sw128_desc(sm.v[prev][hw]);
 #pragma unroll
           for (int kk = 0; kk < kKeys / 16; ++kk)
             wgmma_rs(o, p_prev[kk], dv + 128 * kk);
@@ -536,7 +575,7 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         finish_pv();
         mbar_arrive(&sm.empty[stage]);
       }
-      if (++stage == kStages) {
+      if (++stage == Layout::kRing) {
         stage = 0;
         phase ^= 1;
       }
@@ -545,6 +584,33 @@ attn_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
 
     // epilogue: normalise and store; a row with nothing attended has
     // l == 0 and a zero accumulator, so it writes 0
+    if constexpr (HP == 2) {
+      // K6: into the warpgroup's Q tile (read no more) as 64 rows of 128
+      // bytes with the 128-byte swizzle, then one TMA store of whole rows
+      // (rows past N are not written)
+      uint8_t* tile = reinterpret_cast<uint8_t*>(sm.q[wg]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float l = softmax.l[i];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        const int r = warp * 16 + lane / 4 + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(tile + sw128_offset(r, j) +
+                                       4 * quad) =
+              pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      }
+      fence_proxy_async();                  // the tile is TMA's source
+      named_sync(1 + wg, kWG);
+      if (t == 0) {
+        tma_store_4d(&omap, tile, 0, h + hw, q0 + wg / HP * kRows, bz);
+        tma_commit();
+        tma_wait_read<0>();                 // before the block's exit
+      }
+      return;
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float l = softmax.l[i];
@@ -580,23 +646,25 @@ bool encode_code_layer(CUtensorMap* map, const void* base, int b, int h,
                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <bool CA, bool STATS, bool EXT, int QUANT, int NC>
+template <bool CA, bool STATS, bool EXT, int QUANT, int NC, int HP = 1>
 cudaError_t launch_nc(const CUtensorMap& qm, const CUtensorMap& km,
-                      const CUtensorMap& vm, const void* kv_scale,
+                      const CUtensorMap& vm, const CUtensorMap& om,
+                      const void* kv_scale,
                       const void* labels, const void* q_self,
                       const void* q_upper, const void* ext, void* out,
                       void* lse, int bg, int G, int N, int H, int S,
                       int n_keys, cudaStream_t stream) {
   using C = Config<NC, QUANT>;
-  constexpr int smem = sizeof(Smem<NC, QUANT>) + 1024;   // + alignment slack
-  auto kernel = attn_fwd_sm90<CA, STATS, EXT, QUANT, NC>;
+  constexpr int smem = sizeof(Smem<NC, QUANT, HP>) + 1024;  // + alignment
+  auto kernel = attn_fwd_sm90<CA, STATS, EXT, QUANT, NC, HP>;
   // the attribute belongs to the current device: set on every launch
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + NC * kRows - 1) / (NC * kRows), H, bg);
+  constexpr int rows = NC / HP * kRows;     // query rows per block
+  dim3 grid((N + rows - 1) / rows, H / HP, bg);
   kernel<<<grid, C::kThreads, smem, stream>>>(
-      qm, km, vm, static_cast<const float*>(kv_scale),
+      qm, km, vm, om, static_cast<const float*>(kv_scale),
       static_cast<const int32_t*>(labels),
       static_cast<const int32_t*>(q_self),
       static_cast<const int32_t*>(q_upper), static_cast<const uint8_t*>(ext),
@@ -619,11 +687,11 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (err != cudaSuccess) return err;
   if (nc == 3)
     return launch_nc<CA, STATS, EXT, QUANT, 3>(
-        qm, km, vm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg, G,
-        N, H, S, n_keys, stream);
+        qm, km, vm, qm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg,
+        G, N, H, S, n_keys, stream);
   return launch_nc<CA, STATS, EXT, QUANT, 1>(
-      qm, km, vm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg, G, N,
-      H, S, n_keys, stream);
+      qm, km, vm, qm, kv_scale, labels, q_self, q_upper, ext, out, lse, bg, G,
+      N, H, S, n_keys, stream);
 }
 
 // The CA variants: STATS when lse is not null, EXT when ext is not null;
@@ -711,6 +779,24 @@ int must3r_ca_fwd_q8(const void* q, const void* kv8, const void* kv_scale,
                                out, lse, B, G, N, H, S, kv_len, st)
           : ca_launch<kQ8Fp8>(q, kv8, kv_scale, labels, q_self, q_upper, ext,
                               out, lse, B, G, N, H, S, kv_len, st));
+}
+
+// K6: q / out [B, 1, N, H, Dh] bf16 (H even), kv the whole packed cache
+// [L, B, H, S, 2*Dh] bf16 with the layer to read, labels [B, S] int32.
+int must3r_ca_fwd_2h_bf16(const void* q, const void* kv, const void* labels,
+                          void* out, int B, int N, int H, int Dh, int S,
+                          int kv_len, int layer, void* stream) {
+  if (Dh != kDh || H % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const __nv_bfloat16* layer_kv = static_cast<const __nv_bfloat16*>(kv) +
+                                  (size_t)layer * B * H * S * (2 * kDh);
+  CUtensorMap qm, kvm, om;
+  if (!encode_rows(&qm, q, B, N, H) ||
+      !encode_layer(&kvm, layer_kv, B, H, S, kv_len) ||
+      !encode_rows(&om, out, B, N, H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_nc<true, false, false, 0, 2, 2>(
+      qm, kvm, kvm, om, nullptr, labels, nullptr, nullptr, nullptr, out,
+      nullptr, B, 1, N, H, S, kv_len, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Shared constants and helpers of the port's kernels (attention_sm90.cu:
-// K1, K2, K2(d); attention_bwd_sm90.cu: K3, K4, K5; attention.cu: K6;
-// ln_matmul.cu: K7). The tile constants are the WMMA program's (K6).
+// K1, K2, K2(d), K6; attention_bwd_sm90.cu: K3, K4, K5; ln_matmul_sm90.cu:
+// K7).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,10 +9,6 @@
 
 namespace must3r {
 
-constexpr int kBQ = 64;             // query rows per tile
-constexpr int kBK = 64;             // keys per tile
-constexpr int kWarps = 4;           // 16 rows per warp
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 // LSE of a query row that attends no key: exp(s - kEmptyLse) underflows to
 // exactly 0 for every finite score, so the backward's recomputed

@@ -3,7 +3,7 @@
 // (`kernel` and `kernel2`), which checked that the TPU loads float8_e4m3fn
 // and converts it to bf16, and that a dot after that dequant works: the
 // same conversion and the same dequantize-then-dot that K2(d) (ca_fwd_q8 in
-// attention.cu) does on an 8-bit token memory.
+// attention_sm90.cu) does on an 8-bit token memory.
 //
 //   fp8_to_bf16_x2  : o = bf16(x) * 2; x [n] fp8 e4m3 -> o [n] bf16.
 //                     Exact (e4m3 fits bf16, and * 2 only moves the

@@ -1,8 +1,9 @@
 // Device and host helpers of the port's TMA + wgmma programs for Hopper
-// (sm_90a): attention_sm90.cu (K1, K2, K2(d)) and attention_bwd_sm90.cu
-// (K3, K4, K5). mbarriers, TMA loads and reduce-adds, wgmma with both
-// operands in shared memory or A in registers, the key mask of a memory
-// CA, the tensor-map encoder and the rule for the query rows of a block.
+// (sm_90a): attention_sm90.cu (K1, K2, K2(d), K6), attention_bwd_sm90.cu
+// (K3, K4, K5) and ln_matmul_sm90.cu (K7). mbarriers, TMA loads and
+// reduce-adds, wgmma with both operands in shared memory or A in registers,
+// the key mask of a memory CA, the tensor-map encoder and the rule for the
+// query rows of a block.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder: see encoder())
@@ -64,6 +65,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One box of a 2-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // One box of a 4-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -85,6 +97,28 @@ __device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
                                                   int c1, int c2, int c3) {
   asm volatile(
       "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// Store one box of shared memory into the global tensor of a 2-D (4-D) map;
+// elements outside the map's dims are not written. Completes like
+// tma_reduce_add_4d (tma_commit, then tma_wait_read / tma_wait_all).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
@@ -239,16 +273,24 @@ __device__ __forceinline__ uint32_t ballot_allowed(
 
 // --- host side ------------------------------------------------------------
 
+// The current device's SM count.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess
+             ? err
+             : cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+}
+
 // Consumer warpgroups (64 query rows each) per block of the programs that
 // own query rows (K1, K2, K3): 3 (one block an SM) when ceil(N / 192) * H
 // * B * G blocks still give every SM two, else 1 (two blocks an SM), so
 // that a small grid (one image's 768 rows x 12 heads: 144 blocks) still
 // fills the SMs.
 inline cudaError_t consumers_per_block(int n, long long h_bg, int* nc) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   *nc = (long long)((n + 191) / 192) * h_bg >= 2LL * sms ? 3 : 1;
   return cudaSuccess;
@@ -293,6 +335,24 @@ inline bool encode_4d(CUtensorMap* map, CUtensorMapDataType dtype,
   return fn(map, dtype, 4, const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major bf16 matrix [rows, cols] (cols * 2 bytes a multiple of 16):
+// dims (cols, rows), boxes of box_cols x box_rows with the 128-byte swizzle
+// (box_cols = 64: a box row is 128 bytes); elements outside the matrix are
+// zero-filled.
+inline bool encode_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                      int box_rows, int box_cols) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,11 +1,11 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-Each source (``attention_sm90.cu``: the forwards K1, K2 and K2(d), the
-8-bit cache read, one TMA + wgmma program; ``attention_bwd_sm90.cu``: the
-CA backwards K3 (dQ), K4 (dK|dV) and K5 (both), TMA + wgmma programs;
-``attention.cu``: the WMMA program of K6, two heads per block;
-``probe_fp8.cu``: the fp8 probe kernels; ``ln_matmul.cu``: K7, LayerNorm +
-matmul) is compiled with ``nvcc`` at first use into its own shared library
+Each source (``attention_sm90.cu``: the forwards K1, K2, K2(d) (the
+8-bit cache read) and K6 (two heads per block), one TMA + wgmma program;
+``attention_bwd_sm90.cu``: the CA backwards K3 (dQ), K4 (dK|dV) and K5
+(both), TMA + wgmma programs; ``probe_fp8.cu``: the fp8 probe kernels;
+``ln_matmul_sm90.cu``: K7, LayerNorm + matmul, a TMA + wgmma program) is
+compiled with ``nvcc`` at first use into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 bound by ``ENTRIES``, and keyed on a hash of the source,
 the shared headers and the flags, under ``build/kernels/`` at the root of
@@ -34,17 +34,17 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "attention_sm90.cu", _CSRC / "attention_bwd_sm90.cu",
-           _CSRC / "attention.cu", _CSRC / "probe_fp8.cu",
-           _CSRC / "ln_matmul.cu")
+           _CSRC / "probe_fp8.cu", _CSRC / "ln_matmul_sm90.cu")
 HEADERS = (_CSRC / "common.cuh", _CSRC / "sm90.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (64,)
 _GRID_YZ_MAX = 65535
-# K7's tiling (csrc/ln_matmul.cu): K in 64-deep chunks, the normalised rows
-# of a block in shared memory (at most 1664 wide), N in 128-column tiles
-LN_K_STEP, LN_MAX_K, LN_N_STEP, LN_ROWS = 64, 1664, 128, 64
+# K7's tiling (csrc/ln_matmul_sm90.cu): K in 64-deep chunks, g and b of a
+# block in shared memory as fp32 (K at most 8192), N in tiles of 128 (or
+# 192) columns, 128 rows a block
+LN_K_STEP, LN_MAX_K, LN_N_STEP, LN_ROWS = 64, 8192, 128, 128
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -109,18 +109,17 @@ ENTRIES = {
         "must3r_sa_fwd_bf16": [_PTR] * 4 + [_I32] * 4 + [_PTR],
         "must3r_ca_fwd_bf16": [_PTR] * 6 + [_I32] * 7 + [_PTR],
         "must3r_ca_fwd_train_bf16": [_PTR] * 8 + [_I32] * 7 + [_PTR],
-        "must3r_ca_fwd_q8": [_PTR] * 9 + [_I32] * 8 + [_PTR]},
+        "must3r_ca_fwd_q8": [_PTR] * 9 + [_I32] * 8 + [_PTR],
+        "must3r_ca_fwd_2h_bf16": [_PTR] * 4 + [_I32] * 7 + [_PTR]},
     "attention_bwd_sm90": {
         "must3r_ca_bwd_fused_bf16": [_PTR] * 11 + [_I32] * 7 + [_PTR],
         "must3r_ca_bwd_dkv_bf16": [_PTR] * 10 + [_I32] * 7 + [_PTR],
         "must3r_ca_bwd_dq_bf16": [_PTR] * 10 + [_I32] * 7 + [_PTR]},
-    "attention": {
-        "must3r_ca_fwd_2h_bf16": [_PTR] * 4 + [_I32] * 7 + [_PTR]},
     "probe_fp8": {
         "must3r_fp8_to_bf16_x2": [_PTR] * 2 + [_I32] + [_PTR],
         "must3r_fp8_dequant_dot": [_PTR] * 3 + [_I32] * 3 + [_PTR]},
-    "ln_matmul": {
-        "must3r_ln_matmul_bf16": [_PTR] * 5 + [_I32] * 3 + [_PTR]},
+    "ln_matmul_sm90": {
+        "must3r_ln_matmul_bf16": [_PTR] * 6 + [_I32] * 3 + [_PTR]},
 }
 
 
@@ -482,7 +481,11 @@ def ca_fwd_2h(q: torch.Tensor, kv_cache: torch.Tensor, labels: torch.Tensor,
     (H even); kv_cache the whole packed cache [L, B, H, S, 2*Dh] bf16, of
     which ``layer`` is read; labels [B, S] int32; kv_len a host int. A key
     j is attended when j < kv_len and labels[b, j] >= 0; a row that
-    attends nothing is 0. Returns out [B, 1, N, H, Dh]."""
+    attends nothing is 0. Returns out [B, 1, N, H, Dh]. It runs the
+    program of :func:`ca_fwd` with a head pair a block (template argument
+    HP = 2: one 64-row consumer warpgroup for each head, both heads' K and
+    V tiles in each stage of one ring, one mask per tile from the
+    labels)."""
     dev = q.device
     _check("q", q, torch.bfloat16, 5, dev)
     _check("kv_cache", kv_cache, torch.bfloat16, 5, dev)
@@ -497,7 +500,7 @@ def ca_fwd_2h(q: torch.Tensor, kv_cache: torch.Tensor, labels: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel():
         with torch.cuda.device(dev):
-            err = _load("attention").must3r_ca_fwd_2h_bf16(
+            err = _load("attention_sm90").must3r_ca_fwd_2h_bf16(
                 q.data_ptr(), kv_cache.data_ptr(), labels.data_ptr(),
                 out.data_ptr(), b, n, h, dh, kv_cache.shape[3], int(kv_len),
                 int(layer), _stream(dev))
@@ -513,8 +516,8 @@ def ln_matmul_limits(k: int, n: int):
     """Raise, naming the limit, where K or N breaks K7's tiling."""
     if k <= 0 or k % LN_K_STEP or k > LN_MAX_K:
         raise ValueError(f"ln_matmul: K = {k} must be a positive multiple of "
-                         f"{LN_K_STEP} and at most {LN_MAX_K} (the "
-                         f"normalised rows of a block sit in shared memory)")
+                         f"{LN_K_STEP} and at most {LN_MAX_K} (g and b sit "
+                         f"in a block's shared memory as fp32)")
     if n <= 0 or n % LN_N_STEP:
         raise ValueError(f"ln_matmul: N = {n} must be a positive multiple of "
                          f"{LN_N_STEP} (the kernel's column tile)")
@@ -524,7 +527,11 @@ def ln_matmul(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               w: torch.Tensor) -> torch.Tensor:
     """K7: bf16(LayerNorm(x) * g + b) @ w, fp32 statistics (population
     variance, eps 1e-6) and fp32 accumulation, no residual. x [M, K], g / b
-    [K], w [K, N], all bf16 -> [M, N] bf16; any M."""
+    [K], w [K, N], all bf16 -> [M, N] bf16; any M. Two kernels of
+    ``csrc/ln_matmul_sm90.cu`` in one launch (counted once): the row
+    statistics (into fp32 scratch [M, 2]), then the TMA + wgmma program of
+    the product, 128 rows a block, 192 columns where N is a multiple of 192
+    and that gives fewer waves of blocks, else 128."""
     (m, k), n = x.shape, w.shape[-1]
     ln_matmul_limits(k, n)
     dev = x.device
@@ -541,10 +548,11 @@ def ln_matmul(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                          f"{_GRID_YZ_MAX} row tiles")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m:
+        stats = torch.empty((m, 2), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
-            err = _load("ln_matmul").must3r_ln_matmul_bf16(
+            err = _load("ln_matmul_sm90").must3r_ln_matmul_bf16(
                 x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
-                out.data_ptr(), m, k, n, _stream(dev))
+                stats.data_ptr(), out.data_ptr(), m, k, n, _stream(dev))
         _raise_on(err, "ln_matmul")
         ln_matmul.launches += 1
     return out

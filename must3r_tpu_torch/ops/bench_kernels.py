@@ -4,7 +4,8 @@ them; the bench tools (``tools/bench_ca_kernel.py``,
 ``tools/bench_fused_chain.py``) do.
 
 * :func:`memory_cross_attention_2h` -- kernel K6 ``ca_fwd_2h``
-  (``csrc/attention.cu``), replacing ``_ca_pallas_2h`` of
+  (``csrc/attention_sm90.cu``, the TMA + wgmma forward program with a
+  head pair a block), replacing ``_ca_pallas_2h`` of
   ``scripts/bench_ca_kernel.py``: the memory cross-attention forward with
   two heads per block over one shared label tile. Its limits are the TPU
   kernel's: one image of queries (G = 1), an even head count, a key j is
@@ -12,7 +13,8 @@ them; the bench tools (``tools/bench_ca_kernel.py``,
   dropout mask), no LSE, a bf16 cache. Where the TPU kernel's precondition
   fails (a query row attends nothing) the port keeps K2's definition, out =
   0; the TPU kernel gives NaN or a mean of V there.
-* :func:`ln_matmul` -- kernel K7 (``csrc/ln_matmul.cu``), replacing
+* :func:`ln_matmul` -- kernel K7 (``csrc/ln_matmul_sm90.cu``, a TMA +
+  wgmma program), replacing
   ``pallas_ln_matmul`` of ``scripts/bench_fused_chain.py``: LayerNorm (fp32
   statistics, population variance, eps 1e-6) with the normalised rows
   rounded to x's dtype, then the product with w at fp32 accumulation,

@@ -1,6 +1,7 @@
-"""Variant builds of K2(d) and K5: where their time and registers go.
+"""Variant builds of K2(d), K5, K6 and K7: where their time and registers go.
 
     python -m must3r_tpu_torch.tools.ablate_kernels [--out FILE]
+        [--groups q8 k5 2h ln]
 
 Each variant is a kernel source of ``csrc/`` with one part of its program
 switched off by text edits (``VARIANTS``), compiled with the flags of
@@ -17,6 +18,19 @@ printed, and its device time (``tools/timing.device_ms``):
   * K5 (``csrc/attention_bwd_sm90.cu``) at the init pair [2,2,768] against
     1,536 keys, for variants that add setmaxnreg (the register split
     between the producer and the consumer warpgroups that K1 / K2 use).
+  * K6 (``csrc/attention_sm90.cu``, HP = 2) at the render [1,1,7680,12,64]
+    against 7,680 keys and the update [1,1,768,12,64] against 49,152 (the
+    cases of ``scripts/bench_ca_kernel.py``), beside K2 on the same layer:
+    with its ring at K2's 4 stages instead of 6, K2's epilogue (4-byte
+    stores) instead of the TMA store, no store, no K / V loads.
+  * K7 (``csrc/ln_matmul_sm90.cu``) at the three cases of
+    ``scripts/bench_fused_chain.py`` (x [M, 768] with M = 1024 / 3072 /
+    1024, w [768, N] with N = 2304 / 2304 / 3072), beside ``torch.matmul``
+    alone on the same x and w: with the normalisation off (the x chunk is
+    fed to wgmma as it is), the statistics off (mean 0, rstd 1), both off
+    (the TMA + wgmma product alone), 128 columns a block always, the TMA
+    ring alone, everything but the loads, no output store, and the product
+    launched after the statistics kernel ends.
 
 The wrappers of ``ops/_kernels.py`` make every call (their library is
 swapped for the variant's while it is timed). Needs a CUDA device and
@@ -41,7 +55,11 @@ from must3r_tpu_torch.tools.timing import device_ms
 
 SEED = 0
 ABLATE_DIR = _kernels.BUILD_DIR.parent / "ablate"
-Q8, K5 = "attention_sm90", "attention_bwd_sm90"
+Q8, K5, LN = "attention_sm90", "attention_bwd_sm90", "ln_matmul_sm90"
+# group of variants -> (source stem, what they are timed beside: None for
+# nothing)
+GROUPS = {"q8": (Q8, "bf16 K2"), "k5": (K5, None), "2h": (Q8, "K2"),
+          "ln": (LN, "torch.matmul")}
 
 # the edits, each (text of the source, its replacement); every text must
 # occur exactly once
@@ -62,6 +80,45 @@ _NO_CODE_TMA = [
      " h,\n                          b);",
      "mbar_arrive(&sm.full[stage]);")]
 
+_LN_NO_NORM = [
+    ("        a[kk][2 * h + i] =\n"
+     "            pack_bf16(fmaf((x0 - mean[i]) * rstd[i], p.x, p.z),\n"
+     "                      fmaf((x1 - mean[i]) * rstd[i], p.y, p.w));",
+     "        a[kk][2 * h + i] = u;")]
+_LN_NO_STATS = [("  ln_row_stats<<<", "  if (false) ln_row_stats<<<"),
+                ("    if (m0 + row + 8 * i < M) {", "    if (false) {")]
+_LN_128_COLS = [("return N % 192 == 0 && cost(3) < cost(2) ? 3 : 2;",
+                 "return 2;")]
+_LN_NO_PRODUCTS = [
+    ("        wgmma_rs(d[nb], a[kk], sw128_desc(ring.w(stage, nb)) + 128 *"
+     " kk);", "        ;")]
+_LN_NO_LOADS = [
+    ("      mbar_expect_tx(ring.full(stage), Ring<NB>::kStageBytes);\n"
+     "      tma_load_2d(ring.x(stage), &xmap, ring.full(stage), c * kChunk,"
+     " m0);\n#pragma unroll\n"
+     "      for (int nb = 0; nb < NB; ++nb)\n"
+     "        tma_load_2d(ring.w(stage, nb), &wmap, ring.full(stage), n0 +"
+     " 64 * nb,\n                    c * kChunk);",
+     "      mbar_arrive(ring.full(stage));")]
+_LN_NO_STORES = [("      tma_store_2d(&omap,",
+                  "      if (false) tma_store_2d(&omap,")]
+_2H_NO_STORES = [("        tma_store_4d(&omap,",
+                  "        if (false) tma_store_4d(&omap,")]
+_2H_DIRECT_STORES = [("    if constexpr (HP == 2) {\n      // K6: into",
+                      "    if constexpr (false) {\n      // K6: into")]
+_LN_NO_PDL = [("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;")]
+_2H_NO_LOADS = [
+    ("              mbar_expect_tx(&sm.full[stage], 2 * HP * kTileBytes);\n"
+     "#pragma unroll\n"
+     "              for (int hp = 0; hp < HP; ++hp) {\n"
+     "                tma_load_4d(sm.k[stage][hp], &kmap, &sm.full[stage], 0,"
+     " j0,\n                            h + hp, b);\n"
+     "                tma_load_4d(sm.v[stage][hp], &vmap, &sm.full[stage],"
+     " kDh, j0,\n                            h + hp, b);\n"
+     "              }",
+     "              mbar_arrive(&sm.full[stage]);")]
+_2H_4_STAGES = [("constexpr int kStagesPair = 6;",
+                 "constexpr int kStagesPair = 4;")]
 
 
 def _k5_setmaxnreg(consumer_regs: int):
@@ -78,38 +135,81 @@ def _k5_setmaxnreg(consumer_regs: int):
          f"----------------\n  regs_inc<{consumer_regs}>();\n")]
 
 
-# name -> (source stem, what is switched off, edits)
+# name -> (group, what is switched off, edits)
 VARIANTS = {
-    "q8_full": (Q8, "nothing (the kernel as shipped)", []),
+    "q8_full": ("q8", "nothing (the kernel as shipped)", []),
     "q8_no_scale_passes": (
-        Q8, "consumers: the k-scale multiply of S and the v-scale select "
+        "q8", "consumers: the k-scale multiply of S and the v-scale select "
         "on P", _NO_SCALE_PASSES),
     "q8_no_scale_loads": (
-        Q8, "converters: the loads of the tile's 64 k and 64 v scales",
+        "q8", "converters: the loads of the tile's 64 k and 64 v scales",
         _NO_SCALE_LOADS),
     "q8_no_conversion": (
-        Q8, "converters: the code -> bf16 conversion and the stores into "
+        "q8", "converters: the code -> bf16 conversion and the stores into "
         "the swizzled stage", _NO_CONVERSION),
     "q8_no_code_tma": (
-        Q8, "producer: the TMA loads of the codes (the stage is marked "
+        "q8", "producer: the TMA loads of the codes (the stage is marked "
         "full at once)", _NO_CODE_TMA),
     "q8_rings_only": (
-        Q8, "all four above: only the rings' handshakes beside the bf16 "
+        "q8", "all four above: only the rings' handshakes beside the bf16 "
         "program's work",
         _NO_SCALE_PASSES + _NO_SCALE_LOADS + _NO_CONVERSION + _NO_CODE_TMA),
-    "k5_full": (K5, "nothing (the kernel as shipped: every warp keeps "
+    "k5_full": ("k5", "nothing (the kernel as shipped: every warp keeps "
                 "the launch bound's 168 registers)", []),
     "k5_setmaxnreg_240": (
-        K5, "nothing; added: setmaxnreg 24 for the producer, 240 for the "
+        "k5", "nothing; added: setmaxnreg 24 for the producer, 240 for the "
         "consumers", _k5_setmaxnreg(240)),
     "k5_setmaxnreg_200": (
-        K5, "nothing; added: setmaxnreg 24 for the producer, 200 for the "
+        "k5", "nothing; added: setmaxnreg 24 for the producer, 200 for the "
         "consumers", _k5_setmaxnreg(200)),
+    "ln_full": ("ln", "nothing (the kernel as shipped)", []),
+    "ln_no_norm": (
+        "ln", "consumers: the normalisation (x fed to wgmma as it is)",
+        _LN_NO_NORM),
+    "ln_no_stats": (
+        "ln", "the statistics kernel and the consumers' read of its "
+        "output (mean 0, rstd 1)",
+        _LN_NO_STATS),
+    "ln_product_only": (
+        "ln", "both above: the TMA ring and the wgmma product alone",
+        _LN_NO_NORM + _LN_NO_STATS),
+    "ln_128_cols": (
+        "ln", "nothing; 128 columns a block at every shape (no 192)",
+        _LN_128_COLS),
+    "ln_loads_only": (
+        "ln", "the products, the normalisation and the statistics: the "
+        "TMA ring and its handshakes alone", _LN_NO_PRODUCTS + _LN_NO_NORM
+        + _LN_NO_STATS),
+    "ln_no_loads": (
+        "ln", "the producer's TMA loads (each stage is marked full at "
+        "once): products, normalisation and handshakes on stale tiles",
+        _LN_NO_LOADS),
+    "ln_no_stores": (
+        "ln", "the epilogue's TMA stores of out", _LN_NO_STORES),
+    "ln_no_pdl": (
+        "ln", "nothing; the product launched after the statistics kernel "
+        "ends (no programmatic dependent launch)", _LN_NO_PDL),
+    "2h_full": ("2h", "nothing (the kernel as shipped)", []),
+    "2h_4_stages": ("2h", "nothing; a ring of 4 stages (K2's) instead of 6",
+                    _2H_4_STAGES),
+    "2h_no_stores": ("2h", "the epilogue's TMA store of out",
+                     _2H_NO_STORES),
+    "2h_direct_stores": ("2h", "nothing; the epilogue of K1 / K2 (4-byte "
+                         "stores from the accumulators) instead of the TMA "
+                         "store", _2H_DIRECT_STORES),
+    "2h_no_loads": ("2h", "the producer's K / V loads (each stage is marked "
+                    "full at once): the products and softmax on stale tiles",
+                    _2H_NO_LOADS),
 }
 
 
+def variant_stem(name: str) -> str:
+    """The source stem (``csrc/<stem>.cu``) a variant edits."""
+    return GROUPS[VARIANTS[name][0]][0]
+
+
 def variant_source(name: str) -> str:
-    stem, _, edits = VARIANTS[name]
+    stem, (_, _, edits) = variant_stem(name), VARIANTS[name]
     text = (_kernels._CSRC / f"{stem}.cu").read_text()
     for old, new in edits:
         if text.count(old) != 1:
@@ -145,7 +245,8 @@ def build_variants(names) -> dict:
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _TARGS = re.compile(
-    r"(attn_fwd_sm90|ca_bwd_fused_sm90|ca_bwd_dq_sm90)I((?:L[bi]\d+E)+)E")
+    r"(attn_fwd_sm90|ca_bwd_fused_sm90|ca_bwd_dq_sm90|ln_matmul_sm90)"
+    r"I((?:L[bi]\d+E)+)E")
 
 
 def ptxas_report(log: str, keep=lambda name: True) -> dict:
@@ -176,10 +277,11 @@ def ptxas_report(log: str, keep=lambda name: True) -> dict:
 
 
 # the kernels whose registers are reported: the int8 K2(d) of the render
-# and update (no STATS, no EXT; 64- and 192-row blocks), K5 and K4 (flags
-# EXT, DQ) and K3 (EXT, NC), whose library the K5 variants rebuild
-REPORTED = ("attn_fwd_sm90<1, 0, 0, 1,", "ca_bwd_fused_sm90<",
-            "ca_bwd_dq_sm90<")
+# and update (no STATS, no EXT; 64- and 192-row blocks) and K6 (the head
+# pair), whose library the K2(d) variants rebuild; K5 and K4 (flags EXT,
+# DQ) and K3 (EXT, NC), whose library the K5 variants rebuild; K7 (NB)
+REPORTED = ("attn_fwd_sm90<1, 0, 0, 1,", "attn_fwd_sm90<1, 0, 0, 0, 2,",
+            "ca_bwd_fused_sm90<", "ca_bwd_dq_sm90<", "ln_matmul_sm90<")
 
 
 def _load_variant(stem: str, path: Path):
@@ -254,10 +356,59 @@ def k5_case(dev):
                                          delta, dout, ext)
 
 
+# name, M, N of scripts/bench_fused_chain.py (rows padded to 256), K = 768
+LN_CASES = (("update_qkv", 1024, 2304), ("render_qkv", 3072, 2304),
+            ("update_mlp_in", 1024, 3072))
+
+
+def ln_cases(dev):
+    """K7 at the bench cases: name -> (K7 call, torch.matmul of x and w)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = {}
+    for name, m, n in LN_CASES:
+        x = torch.randn(m, 768, generator=gen, device=dev).to(torch.bfloat16)
+        g = (1 + 0.1 * torch.randn(768, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        b = (0.1 * torch.randn(768, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        w = (0.02 * torch.randn(768, n, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        cases[f"{name} [{m},768]->{n}"] = (
+            lambda x=x, g=g, b=b, w=w: _kernels.ln_matmul(x, g, b, w),
+            lambda x=x, w=w: torch.matmul(x, w))
+    return cases
+
+
+def k6_cases(dev):
+    """K6 at the render and the 64-keyframe update of bench_ca_kernel (a
+    12-layer cache, layer 3, every slot live): name -> (K6 call, K2 call on
+    the same layer)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cases = {}
+    for name, n, s in (("render [1,1,7680] vs 7680", 7680, 7680),
+                       ("update [1,1,768] vs 49152", 768, 49152)):
+        q = torch.randn(1, 1, n, 12, 64, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        cache = torch.randn(12, 1, 12, s, 128, generator=gen, device=dev
+                            ).to(torch.bfloat16)
+        labels = torch.zeros(1, s, dtype=torch.int32, device=dev)
+        qs = torch.full((1, 1), -1, dtype=torch.int32, device=dev)
+        qu = torch.full((1, 1), INT32_MAX, dtype=torch.int32, device=dev)
+        cases[name] = (
+            lambda q=q, c=cache, lab=labels, s=s: _kernels.ca_fwd_2h(
+                q, c, lab, s, 3),
+            lambda q=q, c=cache, lab=labels, qs=qs, qu=qu, s=s:
+                _kernels.ca_fwd(q, c[3], lab, qs, qu, s))
+    return cases
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="file for the variants' compiler logs")
+    ap.add_argument("--groups", nargs="+", default=list(GROUPS),
+                    choices=list(GROUPS),
+                    help="the groups of variants built and timed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_kernels needs a CUDA device")
@@ -266,27 +417,31 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    built = build_variants(VARIANTS)
+    built = build_variants([name for name, (group, _, _) in VARIANTS.items()
+                            if group in args.groups])
     if args.out:
         Path(args.out).write_text("".join(
             f"== {k}\n{log}\n" for k, (_, log) in built.items()))
-    cases = {Q8: q8_cases(dev), K5: {"init pair [2,2,768] vs 1536":
-                                     (k5_case(dev), None)}}
+    make_cases = {"q8": q8_cases, "k5": lambda dev: {
+        "init pair [2,2,768] vs 1536": (k5_case(dev), None)},
+        "2h": k6_cases, "ln": ln_cases}
     result = {"card": card, "variants": {}}
-    for stem in (Q8, K5):
+    for group in args.groups:
+        stem, beside = GROUPS[group]
+        cases = make_cases[group](dev)
         ref = {}
-        for case, (_, bf16_call) in cases[stem].items():
-            if bf16_call is not None:
+        for case, (_, yardstick) in cases.items():
+            if yardstick is not None:
                 torch.cuda.synchronize()
-                result[f"bf16 K2 {case} ms"] = device_ms(bf16_call)
-        for name, (src_stem, off, _) in VARIANTS.items():
-            if src_stem != stem:
+                result[f"{beside} {case} ms"] = device_ms(yardstick)
+        for name, (var_group, off, _) in VARIANTS.items():
+            if var_group != group:
                 continue
             path, log = built[name]
             lib = _load_variant(stem, path)
             row = {"off": off, "ptxas": ptxas_report(
                 log, lambda k: k.startswith(REPORTED))}
-            for case, (call, _) in cases[stem].items():
+            for case, (call, _) in cases.items():
                 out, ms = _timed(stem, lib, call)
                 out = torch.cat([t.float().flatten() for t in out]) \
                     if isinstance(out, tuple) else out.float()

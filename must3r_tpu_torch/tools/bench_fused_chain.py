@@ -11,7 +11,7 @@ multiple of 256 as in the script), for each case it prints:
   matmul  ``x @ w`` (``torch.matmul``), the floor
   chain   ``F.layer_norm(x) @ w + residual``, two library calls and an add,
           what an unfused decoder block pays (the script's xla-chain)
-  fused   K7 ``ln_matmul`` (LayerNorm + matmul in one kernel, no residual)
+  fused   K7 ``ln_matmul`` (LayerNorm + matmul in one launch, no residual)
 
 as device times (a CUDA graph of ``timing.REPS`` calls replayed,
 ``tools/timing.py``), with the TF/s of the 2 * M * K * N product, and the

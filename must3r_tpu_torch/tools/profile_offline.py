@@ -49,18 +49,20 @@ from must3r_tpu_torch.engine.inference import (InferenceCore,
 IMPLS = {"kernel": None, "plain": "plain"}
 # the port's attention kernels by (demangled) name, each group with the
 # pattern its names match: K1, K2 and K2(d) (int8, fp8) of the TMA + wgmma
-# forward program (template flags CA, STATS, EXT, QUANT, NC); K5 and K4 of
-# the TMA + wgmma key-block backward (flags EXT, DQ: K4 is DQ = false); K3,
-# the TMA + wgmma query-block backward; K6 (WMMA)
+# forward program (template flags CA, STATS, EXT, QUANT, NC, HP), and K6,
+# its head pair (HP = 2), matched before K2; K5 and K4 of the TMA + wgmma
+# key-block backward (flags EXT, DQ: K4 is DQ = false); K3, the TMA + wgmma
+# query-block backward; K7, LayerNorm + matmul (flag NB)
 KERNEL_GROUPS = (
     ("attn_fwd_sm90<false", r"attn_fwd_sm90<false"),
+    ("attn_fwd_sm90 2h", r"attn_fwd_sm90<true, \w+, \w+, 0, \d+, 2>"),
     ("attn_fwd_sm90<true", r"attn_fwd_sm90<true, \w+, \w+, 0,"),
     ("attn_fwd_sm90 q8 int8", r"attn_fwd_sm90<true, \w+, \w+, 1,"),
     ("attn_fwd_sm90 q8 fp8", r"attn_fwd_sm90<true, \w+, \w+, 2,"),
     ("ca_bwd_fused_sm90", r"ca_bwd_fused_sm90<\w+, true>"),
     ("ca_bwd_fused_sm90 dkv", r"ca_bwd_fused_sm90<\w+, false>"),
     ("ca_bwd_dq_sm90", r"ca_bwd_dq_sm90<"),
-    ("ca_fwd_2h_kernel", r"ca_fwd_2h_kernel"))
+    ("ln_matmul_sm90", r"ln_matmul_sm90<"))
 N_VIEWS = 10
 HW = (384, 512)
 PAIRS = 10

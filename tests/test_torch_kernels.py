@@ -216,26 +216,32 @@ def test_every_bound_entry_is_defined_with_its_arguments():
 
 
 def test_profile_groups_name_the_kernels_of_each_program():
-    """The profile tools sum device time by kernel name: K1, K2 and K2(d)
-    (int8, fp8) run the TMA + wgmma forward program, K5 and K4 (its DQ =
-    false) the key-block backward, K3 the query-block backward, K6 the WMMA
-    program (runs on the CPU)."""
+    """The profile tools sum device time by kernel name: K1, K2, K2(d)
+    (int8, fp8) and K6 (a head pair a block, counted apart from K2) run the
+    TMA + wgmma forward program, K5 and K4 (its DQ = false) the key-block
+    backward, K3 the query-block backward, K7 a program of its own (runs on
+    the CPU)."""
     from must3r_tpu_torch.tools.profile_offline import kernel_group
 
     fwd = "void (anonymous namespace)::attn_fwd_sm90<{}>(CUtensorMap_st, ...)"
     for name, group in [
-            (fwd.format("false, false, false, 0, 3"), "attn_fwd_sm90<false"),
-            (fwd.format("true, true, true, 0, 1"), "attn_fwd_sm90<true"),
-            (fwd.format("true, false, false, 1, 3"), "attn_fwd_sm90 q8 int8"),
-            (fwd.format("true, true, true, 2, 1"), "attn_fwd_sm90 q8 fp8"),
+            (fwd.format("false, false, false, 0, 3, 1"),
+             "attn_fwd_sm90<false"),
+            (fwd.format("true, true, true, 0, 1, 1"), "attn_fwd_sm90<true"),
+            (fwd.format("true, false, false, 0, 3, 1"),
+             "attn_fwd_sm90<true"),
+            (fwd.format("true, false, false, 1, 3, 1"),
+             "attn_fwd_sm90 q8 int8"),
+            (fwd.format("true, true, true, 2, 1, 1"), "attn_fwd_sm90 q8 fp8"),
             ("void (anonymous namespace)::ca_bwd_fused_sm90<true, true>"
              "(CUtensorMap_st, ...)", "ca_bwd_fused_sm90"),
             ("void (anonymous namespace)::ca_bwd_fused_sm90<false, false>"
              "(CUtensorMap_st, ...)", "ca_bwd_fused_sm90 dkv"),
             ("void (anonymous namespace)::ca_bwd_dq_sm90<true, 3>"
              "(CUtensorMap_st, ...)", "ca_bwd_dq_sm90"),
-            ("void (anonymous namespace)::ca_fwd_2h_kernel<64>(...)",
-             "ca_fwd_2h_kernel"),
+            (fwd.format("true, false, false, 0, 2, 2"), "attn_fwd_sm90 2h"),
+            ("void (anonymous namespace)::ln_matmul_sm90<3>(CUtensorMap_st, "
+             "...)", "ln_matmul_sm90"),
             ("nvjet_tss_192x192_64x4_2x1_v_bz_coopB_TNN", "matrix products"),
             ("void at::native::vectorized_elementwise_kernel<8, ...>",
              "other")]:
@@ -291,7 +297,8 @@ def test_ablate_variants_apply_to_the_sources(name):
     the unchanged variants are the sources themselves."""
     from must3r_tpu_torch.ops import _kernels
 
-    stem, off, edits = ablate_kernels.VARIANTS[name]
+    _, off, edits = ablate_kernels.VARIANTS[name]
+    stem = ablate_kernels.variant_stem(name)
     src = (_kernels._CSRC / f"{stem}.cu").read_text()
     text = ablate_kernels.variant_source(name)
     assert (text == src) == (not edits) and off
@@ -316,6 +323,9 @@ ptxas info    : Used 168 registers, used 16 barriers
 ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__b2_21_attention_bwd_sm90_cu_68017ca_bwd_dq_sm90ILb0ELi1EEEv14CUtensorMap_st' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__7e_17_ln_matmul_sm90_cu_1b2c3d4e14ln_matmul_sm90ILi3EEEv14CUtensorMap_st' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 2 barriers
 """
     got = ptxas_report(log, lambda k: k.startswith(REPORTED))
     assert got == {
@@ -324,8 +334,10 @@ ptxas info    : Used 128 registers, used 1 barriers
         "ca_bwd_fused_sm90<1, 1>": dict(spill_stores=48, spill_loads=84,
                                         registers=168),
         "ca_bwd_dq_sm90<0, 1>": dict(spill_stores=0, spill_loads=0,
-                                     registers=128)}
-    assert len(ptxas_report(log)) == 4
+                                     registers=128),
+        "ln_matmul_sm90<3>": dict(spill_stores=0, spill_loads=0,
+                                  registers=154)}
+    assert len(ptxas_report(log)) == 5
 
 
 def _poison_past(kv, kv_len):
@@ -693,15 +705,20 @@ def test_fp8_probe_kernels_match_plain(dev):
     assert counts["fp8_to_bf16_x2"] == 1 and counts["fp8_dequant_dot"] == 1
 
 
-# -- K6 (ca_fwd_2h) and K7 (ln_matmul), the microbenchmark kernels ----------
+# -- K6 (ca_fwd_2h) and K7 (ln_matmul), the microbenchmark kernels: the
+# head pair of the TMA + wgmma forward program, and K7's TMA + wgmma program
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,h,s,kv_len", [
     (1, 100, 4, 256, 256),          # ragged query tail
     (2, 257, 2, 320, 200),          # kv_len inside a 64-key tile, B = 2
     (1, 768, 12, 1536, 1000),       # the update shape, partial fill
+    (2, 65, 16, 512, 449),          # 16 heads, B = 2, ragged N and kv_len
+    (1, 1000, 12, 2048, 2048),      # 12 heads, many row tiles, full cache
 ])
 def test_ca_2h_kernel_matches_plain_and_k2(dev, b, n, h, s, kv_len):
+    """K6 reads layer 2 of a 3-layer cache; labels -1..2 below kv_len, live
+    labels past it (never read)."""
     from must3r_tpu_torch.ops import bench_kernels as bk
 
     gen = torch.Generator(device=dev).manual_seed(n)
@@ -737,6 +754,44 @@ def test_ca_2h_kernel_row_that_attends_nothing_is_zero(dev, kv_len):
     assert (float(out[1].abs().max()) > 0) == (kv_len > 0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 200])
+@pytest.mark.parametrize("h", [2, 12, 16])
+def test_ca_2h_kernel_slots_past_kv_len_and_other_layers_change_nothing(
+        dev, kv_len, h):
+    """Layer 1 of a 3-layer cache, every slot labelled 0: its slots at or
+    past kv_len hold NaN and 1e30, the other two layers NaN everywhere, and
+    the output is bitwise that of the clean cache (the tensor map starts at
+    the layer and its key extent is kv_len); it matches the plain version
+    and K2 (kv_len 0: exactly 0)."""
+    from must3r_tpu_torch.ops import bench_kernels as bk
+
+    gen = torch.Generator(device=dev).manual_seed(19 + h)
+    b, n, s_cap = 2, 130, 320
+    q = _randn(gen, dev, b, 1, n, h, DH)
+    kv = _randn(gen, dev, 3, b, h, s_cap, 2 * DH)
+    kv[1, :, :, kv_len:] = 0
+    lab = torch.zeros((b, s_cap), dtype=torch.int32, device=dev)
+    bad = kv.clone()
+    bad[0] = float("nan")
+    bad[2] = float("nan")
+    tail = bad[1, :, :, kv_len:]
+    tail[..., 0::2] = float("nan")
+    tail[..., 1::2] = 1e30
+    out = bk.memory_cross_attention_2h(q, kv, lab, kv_len, 1)
+    assert torch.equal(out, bk.memory_cross_attention_2h(q, bad, lab, kv_len,
+                                                         1))
+    if kv_len == 0:
+        assert float(out.abs().max()) == 0.0
+        return
+    _assert_matches_plain(out, bk.memory_cross_attention_2h(
+        q, kv, lab, kv_len, 1, impl="plain"))
+    qs = torch.full((b, 1), -1, dtype=torch.int32, device=dev)
+    qu = torch.full((b, 1), INT32_MAX, dtype=torch.int32, device=dev)
+    _assert_matches_plain(out, tatt.memory_cross_attention(
+        q, kv, lab, qs, qu, kv_len, layer=1))
+
+
 def _ln_case(gen, dev, m, k, n):
     x = (torch.randn(m, k, generator=gen, device=dev) * 3 + 1
          ).to(torch.bfloat16)
@@ -750,11 +805,15 @@ def _ln_case(gen, dev, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1024, 768, 2304), (980, 768, 3072),
-                                   (1, 64, 128), (77, 1664, 256)])
+                                   (1, 64, 128), (77, 8192, 256),
+                                   (3072, 768, 2304), (77, 768, 128),
+                                   (200, 1024, 384)])
 def test_ln_matmul_kernel_matches_plain(dev, m, k, n):
-    """Ragged M (980 = 5 x 196 unpadded, 1, 77) and the largest K. Bound:
-    phase B's plus one bf16 ulp of the output's largest value (the
-    normalised rows are rounded to bf16 in both)."""
+    """Ragged M (980 = 5 x 196 unpadded, 1, 77, 200), the largest K the
+    limit takes, N = 128 and 3072, 192-column blocks (N = 2304 and 3072 at
+    about 1,024 rows) and 128-column ones (the rest). Bound: phase B's
+    plus one bf16 ulp of the output's largest value (the normalised rows
+    are rounded to bf16 in both)."""
     from must3r_tpu_torch.ops import bench_kernels as bk
 
     gen = torch.Generator(device=dev).manual_seed(m)
