@@ -22,8 +22,20 @@ if not REAL_TPU and "collective_call_terminate" not in flags:
     # devices time-share that core, so a psum legitimately waits minutes
     # whenever other async dispatches are draining -- a starved
     # rendezvous, not a deadlock. Raise both watchdogs.
+    # A backstop: each test's own limit (_time_limit.py) fires first.
     flags += (" --xla_cpu_collective_call_warn_stuck_timeout_seconds=120"
               " --xla_cpu_collective_call_terminate_timeout_seconds=1200")
+if not REAL_TPU and "concurrency_optimized_scheduler" not in flags:
+    # Against a random deadlock of test_sharded_attention.py's sharded
+    # offline tests ("Expected 4 threads to join the rendezvous"). XLA's CPU
+    # runtime may run independent ops of a program at once, on threads the
+    # 8 devices share, and a collective holds its thread until every
+    # participant has arrived: independent all-reduces waiting on every
+    # device can hold all the threads the last participants need. The
+    # memory-optimised schedule orders them by buffer reuse, and no run has
+    # hung with it. (Turning off Eigen's intra-op threads is not enough,
+    # and it changes the float sums the JAX-vs-port tests compare.)
+    flags += " --xla_cpu_enable_concurrency_optimized_scheduler=false"
 os.environ["XLA_FLAGS"] = flags
 
 import jax  # noqa: E402
@@ -33,6 +45,7 @@ if not REAL_TPU:
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+from _time_limit import pytest_runtest_protocol  # noqa: E402,F401
 
 
 def pytest_configure(config):
@@ -42,8 +55,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without one)")
     config.addinivalue_line(
-        "markers", "timeout(seconds): advisory per-test budget "
-        "(enforced only if pytest-timeout is installed)")
+        "markers", "timeout(seconds): the test's hard time limit, setup "
+        "and teardown included (default _time_limit.DEFAULT_LIMIT_S); past "
+        "it the process dumps every stack and exits, and xdist reports the "
+        "test as failed")
 
 
 def pytest_addoption(parser):
