@@ -17,17 +17,19 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from must3r_tpu_torch.engine.inference import (InferenceCore,
                                                offline_reconstruction,
                                                view_positions)
 from must3r_tpu_torch.engine.video import video_reconstruction
+from must3r_tpu_torch.ops.transfer import fetch, stage_in, upload
 from must3r_tpu_torch.retrieval.asmk import ASMK, train_codebook
 from must3r_tpu_torch.retrieval.graph import (farthest_point_sampling,
                                               greedy_keyframe_ordering)
 from must3r_tpu_torch.retrieval.model import RetrievalHead, identity_head
 from must3r_tpu_torch.slam.nns import get_searcher
-from must3r_tpu_torch.tools.image import denormalize_image
+from must3r_tpu_torch.tools.image import denormalize_images
 
 
 @dataclasses.dataclass
@@ -97,21 +99,30 @@ def must3r_inference(core: InferenceCore, views: Sequence[dict],
     the head and postprocess of each batch. ``batch_num_views`` and
     ``render_once`` are accepted as the JAX package accepts them: the
     memory schedule is [init, 1, 1, ...] and every view is rendered
-    against the final memory either way."""
+    against the final memory either way.
+
+    The views go to the core's device once (on a card: stacked into pinned
+    memory, one non-blocking copy); the keyframe order, the outputs' return
+    to input order and the images' denormalisation run there, and every
+    output comes back in one fetch. On a card the returned arrays are numpy
+    views of pinned host memory, which returns to PyTorch's pinned-memory
+    cache when the ``SceneState`` is dropped."""
     v = len(views)
     num_mem_images = min(num_mem_images, v)
-    imgs = torch.from_numpy(np.stack([vw["img"] for vw in views]))
-    portrait = torch.tensor([bool(vw.get("portrait")) for vw in views])
+    dev = core.device
+    with record_function("must3r_inference.stage_in"):
+        imgs = stage_in([np.asarray(vw["img"]) for vw in views], dev)
+        portrait = upload([bool(vw.get("portrait")) for vw in views], dev)
+        rgb = denormalize_images(imgs)
     img_hw = tuple(imgs.shape[1:3])
 
     if is_sequence:
         keyframes = np.linspace(0, v - 1,
                                 num_mem_images).astype(int).tolist()
     else:
-        pos = view_positions(img_hw, core.enc_cfg.patch_size,
-                             portrait.to(core.device), batch_shape=(v,),
-                             device=core.device)
-        x = core.encode_all(imgs.to(core.device), pos, max_bs=encode_bs)
+        pos = view_positions(img_hw, core.enc_cfg.patch_size, portrait,
+                             batch_shape=(v,), device=dev)
+        x = core.encode_all(imgs, pos, max_bs=encode_bs)
         keyframes = select_keyframes(core, x, num_mem_images,
                                      retrieval_head, codebook)
         del x
@@ -125,25 +136,28 @@ def must3r_inference(core: InferenceCore, views: Sequence[dict],
         def hook(ids, partial):
             on_update([order[i] for i in ids], partial)
 
+    # processing order on the device; rendered in input order (to_render)
+    idx = upload(order, dev)
+    imgs, portrait = imgs.index_select(0, idx), portrait.index_select(0, idx)
     out = offline_reconstruction(
-        core, imgs[order], img_hw=img_hw, portrait=portrait[order],
+        core, imgs, img_hw=img_hw, portrait=portrait,
         mem_views=list(range(len(keyframes))),
         init_num_images=init_num_images,
         num_refinement_iterations=num_refinements_iterations,
+        to_render=np.argsort(order).tolist(),
         render_bs=render_bs, encode_bs=encode_bs, compute_cam=True,
         on_update=hook)
-
-    inv = np.argsort(np.asarray(order))
-    return _scene_state(views, {k: t.float().cpu().numpy()[inv]
-                                for k, t in out.items()})
+    with record_function("must3r_inference.fetch"):
+        out = fetch({**{k: t.float() for k, t in out.items()}, "imgs": rgb})
+    return _scene_state(views, out)
 
 
 def _scene_state(views: Sequence[dict], out: dict) -> SceneState:
-    """The SceneState of per-view numpy outputs in input order."""
+    """The SceneState of per-view numpy outputs in input order, the
+    denormalised images among them ('imgs')."""
     return SceneState(
         pts3d=out["pts3d"], pts3d_local=out["pts3d_local"], conf=out["conf"],
-        imgs=np.stack([denormalize_image(np.asarray(vw["img"]))
-                       for vw in views]),
+        imgs=out["imgs"],
         true_shape=np.asarray([vw["true_shape"] for vw in views]),
         focals=out["focal"], cams2world=out["c2w"],
         image_list=[vw.get("path", str(i)) for i, vw in enumerate(views)])
@@ -238,4 +252,5 @@ def must3r_inference_video(core: InferenceCore, views: Sequence[dict],
         encode_bs=encode_bs, compute_cam=True)
     if verbose:
         print(f"keyframes: {out['keyframes']}")
-    return _scene_state(views, out)
+    return _scene_state(views,
+                        {**out, "imgs": denormalize_images(imgs).numpy()})

@@ -225,6 +225,13 @@ def denormalize_image(img: np.ndarray) -> np.ndarray:
                    ).astype(np.uint8)
 
 
+def denormalize_images(imgs: torch.Tensor) -> torch.Tensor:
+    """:func:`denormalize_image` of a tensor of images on its own device:
+    the same operations in the tensor's dtype (float32: bitwise equal)."""
+    return ((imgs * IMG_STD + IMG_MEAN) * 255.0).clamp(0, 255).to(
+        torch.uint8)
+
+
 def to_landscape(img: np.ndarray) -> Tuple[np.ndarray, bool]:
     """Store portrait images transposed (the network always sees W >= H;
     the head transposes predictions back). Returns (image, portrait)."""
