@@ -177,13 +177,26 @@ non-zero:
      preset (the MUSt3R_224 towers, causal, the encoder frozen, batch 1)
      for one epoch of 160 steps between two evaluations, every step's
      launches the schedule's.
+  K. VGGT-1B (``models/vggt.py``). K1 against its plain version at VGGT's
+     two shapes, phase B's bounds and times: global attention, one
+     sequence of 64 x 1041 tokens [1, 66624, 16, 64], and frame attention,
+     64 ragged sequences [64, 1041, 16, 64]. Then one request at full
+     width (64 frames of 518 x 392, host float32, the benchmark's seeded
+     weights of ``vggt_1b``) through ``demo.inference.vggt_inference``:
+     launch counts and ``vggt_counts()`` zeroed just before and read just
+     after must equal the schedule (K1 24 + 24 + 24 times, no other kernel;
+     64 frames, 24 x 66,624 global tokens, 16 DPT chunks); every output of
+     its shape and finite, every c2w a proper rotation; the maps, pose_enc
+     and c2w within 2e-2 relative RMSE of the same request with the plain
+     attention (the focal's printed: with random weights some fields of
+     view lie near 0, where the focal magnifies any difference in them).
 
 The last three lines are the card's name and power limit, every kernel's
 JSON record (launches summed over the counted runs of C, D, E, F, G, both
-ranks of H, I, J but J2's comparison runs, the probe and the bench tools,
-device times at one main-path shape each, bound and library time) and
-``{"ok": true, "device": {...}}``. About ten to thirteen minutes on an
-H100, the build (four sources, one nvcc each, in parallel) included.
+ranks of H, I, J but J2's comparison runs, K, the probe and the bench
+tools, device times at one main-path shape each, bound and library time)
+and ``{"ok": true, "device": {...}}``. About twelve to fifteen minutes on
+an H100, the build (four sources, one nvcc each, in parallel) included.
 """
 
 import json
@@ -3380,6 +3393,154 @@ def phase_learning(dev, totals):
         f"{ {k: v for k, v in mine.items() if v} }")
 
 
+# ---------------------------------------------------------------------------
+# K. VGGT-1B
+# ---------------------------------------------------------------------------
+
+VGGT_FRAMES = 64
+VGGT_HW = (392, 518)
+VGGT_SEED = 2 ** 31 + 19
+VGGT_MAPS = ("depth", "depth_conf", "world_points", "world_points_conf")
+
+
+def vggt_schedule(cfg, n_frames: int, hw) -> tuple:
+    """(launches, vggt_counts) of one VGGT request: K1 once a block of the
+    tower, the frame and the global attention, no other kernel; the
+    frames, the tokens through global attention summed over its layers,
+    and the DPT chunks of both heads."""
+    from must3r_tpu_torch.ops.attention import launch_counts
+    tokens = cfg.n_special + (hw[0] // cfg.patch_size) * (
+        hw[1] // cfg.patch_size)
+    launches = {k: 0 for k in launch_counts()}
+    launches["sa_fwd"] = cfg.tower_depth + 2 * cfg.depth
+    return launches, {
+        "frames": n_frames, "global_tokens": cfg.depth * n_frames * tokens,
+        "dpt_chunks": 2 * math.ceil(n_frames / cfg.dpt_frames_chunk)}
+
+
+def check_vggt(tag, out, n_frames, hw):
+    """Every output of the expected shape and finite (the focal where both
+    fields of view are positive: a field of view of 0 makes it infinite),
+    every c2w a proper rotation."""
+    h, w = hw
+    want = {"depth": (n_frames, h, w, 1), "depth_conf": (n_frames, h, w),
+            "world_points": (n_frames, h, w, 3),
+            "world_points_conf": (n_frames, h, w), "pose_enc": (n_frames, 9),
+            "c2w": (n_frames, 4, 4), "focal": (n_frames, 2)}
+    seen = torch.as_tensor(out["pose_enc"])[:, 7:].gt(0).all(-1)
+    for key, shape in want.items():
+        t = torch.as_tensor(out[key])
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{tag} {key}: shape {tuple(t.shape)} != "
+                                 f"{shape}")
+        if not torch.isfinite(t[seen] if key == "focal" else t).all():
+            raise AssertionError(f"{tag} {key}: not finite")
+    det = torch.linalg.det(torch.as_tensor(out["c2w"])[:, :3, :3].double())
+    if float((det - 1).abs().max()) > 1e-3:
+        raise AssertionError(f"{tag}: det(R) {det.tolist()}")
+    return seen
+
+
+def phase_vggt(dev, totals, sa):
+    """K1 at VGGT-1B's shapes against its plain version (phase B's bounds
+    and times; the rows join B's ``sa``): global attention, one sequence
+    of 64 x 1041 tokens, and frame attention, 64 ragged sequences of 1041.
+    Then one request at full width (64 frames of 518 x 392, the
+    benchmark's seeded weights of ``vggt_1b``) through ``vggt_inference``,
+    counted against the schedule, its maps, pose_enc and c2w within
+    RMSE_TOL of the same request with the plain attention."""
+    import numpy as np
+
+    from benchmark.vggt_weights import make_weights
+    from must3r_tpu_torch.checkpoint import load_vggt
+    from must3r_tpu_torch.config import vggt_1b_config
+    from must3r_tpu_torch.demo.inference import vggt_inference
+    from must3r_tpu_torch.engine.inference import VGGTCore
+    from must3r_tpu_torch.models.vggt import reset_vggt_counts, vggt_counts
+    from must3r_tpu_torch.ops.attention import (launch_counts,
+                                                reset_launch_counts,
+                                                self_attention)
+
+    t_phase = time.perf_counter()
+    cfg = vggt_1b_config()
+    n_tok = cfg.n_special + (VGGT_HW[0] // cfg.patch_size) * (
+        VGGT_HW[1] // cfg.patch_size)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, shape in (
+            ("global", (1, VGGT_FRAMES * n_tok, cfg.num_heads, cfg.head_dim)),
+            ("frame", (VGGT_FRAMES, n_tok, cfg.num_heads, cfg.head_dim))):
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+        _compare(f"sa {list(shape)} (VGGT {name})",
+                 lambda: self_attention(q, k, v, impl=None),
+                 lambda: self_attention(q, k, v, impl="plain"), sa,
+                 sa_work(shape), sdpa_sa(q, k, v), tag="K")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    with open(os.path.join(ROOT, "benchmark", "configs", "vggt_1b.json")) as f:
+        weights = make_weights(json.load(f), VGGT_SEED, dev)
+    model = load_vggt(weights, cfg, dev)
+    del weights
+    torch.cuda.empty_cache()
+    core = VGGTCore(model)
+    plain = VGGTCore(model, impl="plain")
+    log(f"[K] VGGT-1B: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
+        f" M params")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    frames = list(torch.rand(VGGT_FRAMES, *VGGT_HW, 3, generator=gen,
+                             device=dev).cpu().numpy())
+
+    tag = f"vggt_inference {VGGT_FRAMES} x {VGGT_HW[1]}x{VGGT_HW[0]}"
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reset_vggt_counts()
+    t0 = time.perf_counter()
+    out = vggt_inference(core, frames)
+    secs = time.perf_counter() - t0
+    got, got_v = launch_counts(), vggt_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want, want_v = vggt_schedule(cfg, VGGT_FRAMES, VGGT_HW)
+    _check_counts(tag, got, want, phase="K")
+    _check_counts(f"{tag} vggt_counts", got_v, want_v, phase="K")
+    for key, n in got.items():
+        totals[key] += n
+    out = {key: np.array(a) for key, a in out.items()}
+    seen = check_vggt(tag, out, VGGT_FRAMES, VGGT_HW)
+
+    t0 = time.perf_counter()
+    ref = vggt_inference(plain, frames)
+    plain_secs = time.perf_counter() - t0
+    errs = {key: rel_rmse(torch.as_tensor(out[key]),
+                          torch.as_tensor(ref[key]))
+            for key in (*VGGT_MAPS, "pose_enc", "c2w")}
+    # the focal, (W / 2) / tan(FoV / 2), is printed without a bound: with
+    # random weights some fields of view come out near 0 (ReLU of a small
+    # number), where it turns the FoV's bf16 difference (compared in
+    # pose_enc) into a large relative one, and those frames' large focals
+    # rule the RMSE
+    fov = torch.as_tensor(out["pose_enc"])[seen][:, 7:]
+    focal = (rel_rmse(torch.as_tensor(out["focal"])[seen],
+                      torch.as_tensor(ref["focal"])[seen])
+             if bool(seen.any()) else None)
+    log(f"[K] {tag}: {secs:.2f} s with K1 (the first request), "
+        f"{plain_secs:.2f} s plain; peak device memory "
+        f"{peak / 2**30:.2f} GiB; relative RMSE vs plain "
+        f"{ {key: float(f'{e:.3e}') for key, e in errs.items()} }; focal "
+        f"{focal} over the {int(seen.sum())} frames with both fields of "
+        f"view positive (FoV min {float(fov.min()) if fov.numel() else 0:.3e}"
+        f", median {float(fov.median()) if fov.numel() else 0:.3e} rad)")
+    for key, e in errs.items():
+        if not e <= RMSE_TOL:
+            raise AssertionError(f"{tag} {key}: relative RMSE {e} > "
+                                 f"{RMSE_TOL}")
+    del model, core, plain, out, ref
+    torch.cuda.empty_cache()
+    sync()
+    log(f"[K] phase K: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3410,6 +3571,7 @@ def main():
     phase_parallel(dev, *must3r_512_configs(), counts)
     phase_surfaces(dev, *must3r_512_configs(), counts)
     phase_learning(dev, counts)
+    phase_vggt(dev, counts, sa)
     for extra in (probe_counts, bench_counts):
         for k, v in extra.items():
             counts[k] += v
@@ -3456,8 +3618,8 @@ def main():
         f"{q8[0]['shape']}, the probe kernels at the probe's shapes, "
         f"ca_fwd_2h at {rows_2h[0]['shape']}, ln_matmul at "
         f"{rows_ln[0]['shape']}; launches summed over the counted runs of "
-        f"phases C, D, E, F, G, H (both ranks), I and J (not J2's "
-        f"comparison runs), the probe's entry point "
+        f"phases C, D, E, F, G, H (both ranks), I, J (not J2's "
+        f"comparison runs) and K, the probe's entry point "
         f"and the two bench "
         f"tools; {time.perf_counter() - t_start:.1f} s in all")
     for k in record["kernels"]:

@@ -23,6 +23,11 @@
   ``convert_torch_checkpoint``.
 * :func:`rename_dust3r_keys` / :func:`init_from_dust3r`: a training warm
   start from a dust3r / croco checkpoint (reference ``train.py:274-293``).
+* :func:`load_vggt` / :func:`init_vggt`: a VGGT model from a state dict
+  under the published key names (the track head's keys, which the port
+  does not run, are dropped) or from a seed; :func:`save_vggt_checkpoint`
+  / :func:`load_vggt_checkpoint`: a ``.pt`` holding that state dict and
+  the config, or a published bare state dict (``model.pt``).
 """
 
 from __future__ import annotations
@@ -35,11 +40,14 @@ import numpy as np
 import torch
 
 from must3r_tpu_torch.config import (DecoderConfig, EncoderConfig,
-                                     config_from_json, config_to_json,
+                                     VGGTConfig, config_from_json,
+                                     config_to_json,
                                      decoder_config_to_arg_string,
-                                     encoder_config_to_arg_string)
+                                     encoder_config_to_arg_string,
+                                     vggt_1b_config)
 from must3r_tpu_torch.models.decoder import Decoder, init_decoder
 from must3r_tpu_torch.models.encoder import Encoder, init_encoder
+from must3r_tpu_torch.models.vggt import VGGT, init_vggt_
 
 
 def _to_f32(a: np.ndarray) -> np.ndarray:
@@ -447,3 +455,56 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
         return (1, int(tag)) if tag.isdigit() else (2, 0)
 
     return os.path.join(output_dir, max(cands, key=key))
+
+
+# ---------------------------------------------------------------------------
+# VGGT
+# ---------------------------------------------------------------------------
+
+VGGT_LEFT_OUT = ("track_head.",)
+
+
+def load_vggt(sd: Dict[str, torch.Tensor], cfg: VGGTConfig,
+              device="cuda") -> VGGT:
+    """A VGGT on ``device`` from a state dict under the published key
+    names, fp32 (strict: every key of the model must be there, and no
+    other but the track head's)."""
+    with torch.device("meta"):
+        model = VGGT(cfg)
+    model = model.to_empty(device=device)
+    sd = {k: v.float() for k, v in sd.items()
+          if not k.startswith(VGGT_LEFT_OUT)}
+    with torch.no_grad():
+        model.load_state_dict(sd)
+    return model.requires_grad_(False)
+
+
+def init_vggt(cfg: VGGTConfig, seed: int = 0, device="cuda") -> VGGT:
+    """A random VGGT drawn from one ``torch.Generator`` on ``device``."""
+    with torch.device("meta"):
+        model = VGGT(cfg)
+    model = model.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_vggt_(model, gen).requires_grad_(False)
+
+
+def save_vggt_checkpoint(path: str, model: VGGT):
+    """``path`` (.pt): {'model': the fp32 state dict on the CPU, 'config':
+    the config as JSON}, written under a temporary name and renamed."""
+    state = {"model": {k: v.detach().cpu().float()
+                       for k, v in model.state_dict().items()},
+             "config": config_to_json(model.cfg)}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def load_vggt_checkpoint(path: str, device="cuda",
+                         cfg: Optional[VGGTConfig] = None) -> VGGT:
+    """A model from :func:`save_vggt_checkpoint`'s file (its config), or
+    from a published bare state dict (``cfg``, default VGGT-1B)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "config" in state and "model" in state:
+        return load_vggt(state["model"], config_from_json(state["config"]),
+                         device)
+    return load_vggt(state, cfg or vggt_1b_config(), device)

@@ -9,6 +9,11 @@ the interactive web demo.
     python -m must3r_tpu_torch.cli.reconstruct --web [--web_port 8643] \\
         [--web_hold SECONDS]
 
+``--preset vggt_1b`` runs VGGT instead (``demo.inference.vggt_inference``:
+every image one frame of one scene, in one pass, ``--image_size`` wide,
+default 518), from ``--chkpt`` (a ``save_vggt_checkpoint`` file, whose
+config it takes, or the published ``model.pt``) or at random.
+
 Flags are those of ``must3r_tpu.cli.reconstruct`` plus ``--device``
 (default ``cuda``; there is no silent CPU fallback) and ``--seed`` for
 random-init presets. ``--chkpt`` takes a ``save_params_npz`` bundle or a
@@ -39,11 +44,14 @@ def get_args_parser():
     p = argparse.ArgumentParser("must3r_tpu_torch reconstruct")
     p.add_argument("--chkpt", default=None,
                    help="save_params_npz bundle (.npz) or reference .pth")
-    p.add_argument("--preset", default="512", choices=["224", "512", "tiny"])
+    p.add_argument("--preset", default="512",
+                   choices=["224", "512", "tiny", "vggt_1b"])
     p.add_argument("--input", default=None,
                    help="image folder or list file (omit with --web)")
     p.add_argument("--output_dir", default=None)
-    p.add_argument("--image_size", type=int, default=512)
+    p.add_argument("--image_size", type=int, default=None,
+                   help="MUSt3R: the long side (default 512); VGGT: the "
+                   "width (default 518)")
     p.add_argument("--num_mem_images", type=int, default=20)
     p.add_argument("--init_num_images", type=int, default=2)
     p.add_argument("--retrieval", default=None,
@@ -119,6 +127,10 @@ def load_or_init_model(chkpt, preset: str = "512", img_size=None,
 
 def main(argv=None):
     args = get_args_parser().parse_args(argv)
+    if args.preset == "vggt_1b":
+        return run_vggt(args)
+    if args.image_size is None:
+        args.image_size = 512
     mode = "linseq" if args.is_sequence else args.mode
 
     import time
@@ -126,12 +138,10 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from must3r_tpu_torch.demo.export import scene_to_glb, scene_to_ply
     from must3r_tpu_torch.demo.inference import (must3r_inference,
                                                  must3r_inference_video)
     from must3r_tpu_torch.engine.inference import InferenceCore
     from must3r_tpu_torch.tools.image import list_images, load_images
-    from must3r_tpu_torch.tools.viz import scene_to_html
 
     def make_core():
         enc, dec, enc_cfg, dec_cfg = load_or_init_model(
@@ -222,6 +232,47 @@ def main(argv=None):
         finally:
             if viewer is not None:
                 viewer.close()
+
+    write_scene(scene, args)
+
+
+def run_vggt(args):
+    """``--preset vggt_1b``: the images of ``--input`` as one scene."""
+    import torch
+
+    from must3r_tpu_torch.checkpoint import init_vggt, load_vggt_checkpoint
+    from must3r_tpu_torch.config import vggt_1b_config
+    from must3r_tpu_torch.demo.inference import (vggt_inference,
+                                                 vggt_scene_state)
+    from must3r_tpu_torch.engine.inference import VGGTCore
+    from must3r_tpu_torch.tools.image import list_images, load_vggt_frames
+
+    if not args.input or not args.output_dir:
+        raise SystemExit("--input and --output_dir are required")
+    model = (load_vggt_checkpoint(args.chkpt, device=args.device)
+             if args.chkpt else
+             init_vggt(vggt_1b_config(), seed=args.seed, device=args.device))
+    dtype = torch.bfloat16 if args.amp in ("bf16", "bfloat16") \
+        else torch.float32
+    core = VGGTCore(model, dtype=dtype)
+    paths = list_images(args.input) if os.path.isdir(args.input) else [
+        ln.strip() for ln in open(args.input)
+        if ln.strip() and not ln.startswith("#")]
+    print(f"found {len(paths)} images")
+    frames = load_vggt_frames(paths, args.image_size or 518,
+                              core.cfg.patch_size)
+    if len({f.shape for f in frames}) != 1:
+        raise SystemExit("VGGT takes frames of one size: crop the images "
+                         "to one aspect")
+    out = vggt_inference(core, frames)
+    os.makedirs(args.output_dir, exist_ok=True)
+    write_scene(vggt_scene_state(frames, out, paths), args)
+
+
+def write_scene(scene, args):
+    """scene.pkl, scene.html and a GLB and a PLY per --conf_thrs."""
+    from must3r_tpu_torch.demo.export import scene_to_glb, scene_to_ply
+    from must3r_tpu_torch.tools.viz import scene_to_html
 
     with open(os.path.join(args.output_dir, "scene.pkl"), "wb") as f:
         pickle.dump(scene, f)

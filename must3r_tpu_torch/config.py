@@ -176,6 +176,60 @@ def must3r_224_configs() -> Tuple[EncoderConfig, DecoderConfig]:
     return enc, dec
 
 
+@dataclass(frozen=True)
+class VGGTConfig:
+    """VGGT (Wang et al., CVPR 2025; github.com/facebookresearch/vggt): a
+    DINOv2 ViT tower with register tokens, an aggregator of alternating
+    frame and global attention blocks (QK-LayerNorm, LayerScale, 2D RoPE,
+    camera and register tokens of their own for the first frame), a camera
+    head refining a 9-number pose encoding under adaLN modulation, and two
+    DPT heads (depth, world points). The track head is not part of it.
+
+    ``img_size``: the square the tower's position embedding was learned at
+    (its grid is ``img_size // patch_size`` a side, resized to the frame's
+    patch grid). ``dpt_layers``: the aggregator iterations the DPT heads
+    read (the camera head reads the last)."""
+
+    img_size: int = 518
+    patch_size: int = 14
+    embed_dim: int = 1024
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    tower_depth: int = 24
+    num_register_tokens: int = 4
+    tower_ln_eps: float = 1e-6
+    depth: int = 24
+    ln_eps: float = 1e-5
+    rope: RoPEConfig = RoPEConfig(base=100.0)
+    camera_trunk_depth: int = 4
+    camera_num_heads: int = 16
+    camera_iterations: int = 4
+    dpt_features: int = 256
+    dpt_out_channels: Tuple[int, int, int, int] = (256, 512, 1024, 1024)
+    dpt_layers: Tuple[int, int, int, int] = (4, 11, 17, 23)
+    dpt_frames_chunk: int = 8
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def n_special(self) -> int:
+        """Camera and register tokens at the front of each frame."""
+        return 1 + self.num_register_tokens
+
+    @property
+    def camera_dim(self) -> int:
+        return 2 * self.embed_dim
+
+
+def vggt_1b_config() -> VGGTConfig:
+    """VGGT-1B as published (facebook/VGGT-1B): a ViT-L/14 tower with 4
+    registers, 24 frame + 24 global blocks of 1024 x 16 heads, a 4-block
+    2048-wide camera trunk run 4 times, DPT heads of 256 features."""
+    return VGGTConfig()
+
+
 # ---------------------------------------------------------------------------
 # Reference arg-string compatibility shim
 # ---------------------------------------------------------------------------
@@ -310,11 +364,13 @@ def config_to_json(cfg) -> str:
 
 def config_from_json(s: str):
     d = json.loads(s)
-    cls = {"EncoderConfig": EncoderConfig, "DecoderConfig": DecoderConfig}[d.pop("__class__")]
+    cls = {"EncoderConfig": EncoderConfig, "DecoderConfig": DecoderConfig,
+           "VGGTConfig": VGGTConfig}[d.pop("__class__")]
     if "rope" in d and isinstance(d["rope"], dict):
         d["rope"] = RoPEConfig(**d["rope"])
-    if "img_size" in d:
-        d["img_size"] = tuple(d["img_size"])
+    for key in ("img_size", "dpt_out_channels", "dpt_layers"):
+        if isinstance(d.get(key), list):
+            d[key] = tuple(d[key])
     for key, enum_cls in (("memory_mode", MemoryMode), ("feedback", FeedbackType),
                           ("pointmaps_activation", ActivationType)):
         if key in d:

@@ -2,6 +2,9 @@
 ``must3r_tpu/demo/inference.py``): keyframe choice, reconstruction and the
 ``SceneState`` that exports read.
 
+:func:`vggt_inference` is VGGT's: a scene of frames in one pass, host
+arrays in and out.
+
 Offline collections take their keyframes by retrieval (unordered
 collections: ASMK similarity of the encoder's local features, FPS anchors,
 greedy ordering; :func:`select_keyframes`) or by linspace (ordered
@@ -19,9 +22,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from must3r_tpu_torch.engine.inference import (InferenceCore,
+from must3r_tpu_torch.engine.inference import (InferenceCore, VGGTCore,
                                                offline_reconstruction,
-                                               view_positions)
+                                               view_positions,
+                                               vggt_reconstruction)
 from must3r_tpu_torch.engine.video import video_reconstruction
 from must3r_tpu_torch.ops.transfer import fetch, stage_in, upload
 from must3r_tpu_torch.retrieval.asmk import ASMK, train_codebook
@@ -150,6 +154,42 @@ def must3r_inference(core: InferenceCore, views: Sequence[dict],
     with record_function("must3r_inference.fetch"):
         out = fetch({**{k: t.float() for k, t in out.items()}, "imgs": rgb})
     return _scene_state(views, out)
+
+
+def vggt_inference(core: VGGTCore, frames: Sequence[np.ndarray]) -> dict:
+    """VGGT on one scene: ``frames``, host float32 images [H, W, 3] in [0,
+    1] of one size, go to the core's device once (on a card: stacked into
+    pinned memory, one non-blocking copy); every output of
+    :func:`engine.inference.vggt_reconstruction` comes back in one fetch,
+    as numpy arrays (on a card, views of pinned host memory)."""
+    with record_function("vggt_inference.stage_in"):
+        imgs = stage_in([np.asarray(f, dtype=np.float32) for f in frames],
+                        core.device)
+    out = vggt_reconstruction(core, imgs)
+    with record_function("vggt_inference.fetch"):
+        return fetch(out)
+
+
+def vggt_scene_state(frames: Sequence[np.ndarray], out: dict,
+                     image_list: Optional[List[str]] = None) -> SceneState:
+    """A :class:`SceneState` of VGGT's outputs (for the exports): its world
+    points and their confidence, the camera-frame points of its depth
+    through each frame's intrinsics, the mean of f_x and f_y."""
+    s, h, w = out["depth"].shape[:3]
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    fx, fy = out["focal"][:, 0, None, None], out["focal"][:, 1, None, None]
+    z = out["depth"][..., 0]
+    local = np.stack([(xs - w / 2.0) / fx * z, (ys - h / 2.0) / fy * z, z],
+                     axis=-1)
+    imgs = np.stack([np.asarray(f) for f in frames])
+    return SceneState(
+        pts3d=out["world_points"], pts3d_local=local.astype(np.float32),
+        conf=out["world_points_conf"],
+        imgs=np.clip(imgs * 255.0, 0, 255).round().astype(np.uint8),
+        true_shape=np.tile(np.array([h, w]), (s, 1)),
+        focals=out["focal"].mean(axis=-1), cams2world=out["c2w"],
+        image_list=image_list or [str(i) for i in range(s)])
 
 
 def _scene_state(views: Sequence[dict], out: dict) -> SceneState:

@@ -17,6 +17,8 @@
   as one function over [S, V] image stacks. JAX compiles it into one
   program; here it runs eagerly. With a ``dp`` mesh each rank runs its
   share of the scenes and every rank returns all of them.
+* :class:`VGGTCore` and :func:`vggt_reconstruction`: VGGT on its device,
+  a scene of frames in, maps and cameras out, device tensors both ways.
 
 Everything runs where the weights are: there is no device fallback.
 """
@@ -36,9 +38,11 @@ from must3r_tpu_torch.models.decoder import (Decoder, decoder_head,
                                              decoder_refine, decoder_render,
                                              decoder_update)
 from must3r_tpu_torch.models.encoder import Encoder, encoder_forward
+from must3r_tpu_torch.models.vggt import VGGT, vggt_forward
 from must3r_tpu_torch.ops.geometry import apply_exp_to_norm
 from must3r_tpu_torch.ops.patch import patchify_positions
 from must3r_tpu_torch.ops.pose import (estimate_focal_weiszfeld, make_c2w,
+                                       pose_encoding_to_cameras,
                                        rigid_points_registration)
 from must3r_tpu_torch.parallel import gather, replicate, shard_memory
 
@@ -479,3 +483,44 @@ def make_fused_offline(core: InferenceCore, n_views: int, img_hw,
 
     return run
 
+
+
+# ---------------------------------------------------------------------------
+# VGGT
+# ---------------------------------------------------------------------------
+
+class VGGTCore:
+    """A VGGT model on its device. The aggregator's matrices (its linear
+    layers and the patch projection) are cast in place to ``dtype``, once;
+    biases, norms, embeddings, tokens and both heads stay fp32. ``impl``:
+    the aggregator's attention, as :class:`InferenceCore`'s."""
+
+    def __init__(self, model: VGGT, dtype=torch.bfloat16,
+                 impl: Optional[str] = None):
+        with torch.no_grad():
+            agg = model.aggregator
+            mats = [agg.patch_embed.patch_embed.proj] + [
+                m for m in agg.modules() if isinstance(m, torch.nn.Linear)]
+            for m in mats:
+                m.weight.data = m.weight.data.to(dtype)
+        self.model = model.requires_grad_(False)
+        self.cfg = model.cfg
+        self.dtype = dtype
+        self.impl = impl
+        self.device = next(model.parameters()).device
+
+
+def vggt_reconstruction(core: VGGTCore, imgs: torch.Tensor,
+                        return_layers: bool = False) -> dict:
+    """The model's entry: imgs [S, H, W, 3] in [0, 1] on the core's device
+    (a scene of S frames, H and W multiples of the patch) -> device
+    tensors, fp32: depth [S, H, W, 1], depth_conf [S, H, W], world_points
+    [S, H, W, 3], world_points_conf [S, H, W], pose_enc [S, 9], and from
+    it c2w [S, 4, 4] and focal [S, 2] (f_x, f_y). With ``return_layers``
+    also the aggregator's iterations the heads read ('layers')."""
+    with torch.no_grad():
+        out = vggt_forward(core.model, imgs, dtype=core.dtype,
+                           return_layers=return_layers, impl=core.impl)
+    out["c2w"], out["focal"] = pose_encoding_to_cameras(
+        out["pose_enc"], tuple(imgs.shape[1:3]))
+    return out

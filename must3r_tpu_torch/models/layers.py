@@ -44,10 +44,25 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int):
+    """``qk_norm`` (VGGT's aggregator): LayerNorms ``q_norm`` / ``k_norm``
+    over each head's ``head_dim`` channels of q and k."""
+
+    def __init__(self, dim: int, qk_norm: bool = False, head_dim: int = 64,
+                 eps: float = 1e-5):
         super().__init__()
         self.qkv = nn.Linear(dim, 3 * dim)
+        if qk_norm:
+            self.q_norm = nn.LayerNorm(head_dim, eps=eps)
+            self.k_norm = nn.LayerNorm(head_dim, eps=eps)
         self.proj = nn.Linear(dim, dim)
+
+
+class LayerScale(nn.Module):
+    """A learned per-channel scale of a residual branch (``gamma``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(dim))
 
 
 class CrossAttention(nn.Module):
@@ -60,12 +75,22 @@ class CrossAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, dim: int, mlp_ratio: float, eps: float):
+    """A pre-norm ViT block; ``layer_scale`` adds ``ls1`` / ``ls2`` (DINOv2,
+    VGGT), ``qk_norm`` the attention's ``q_norm`` / ``k_norm`` (VGGT's
+    aggregator, whose QK-norm LayerNorms take ``qk_eps``)."""
+
+    def __init__(self, dim: int, mlp_ratio: float, eps: float,
+                 layer_scale: bool = False, qk_norm: bool = False,
+                 num_heads: int = 16, qk_eps: float = 1e-5):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=eps)
-        self.attn = Attention(dim)
+        self.attn = Attention(dim, qk_norm, dim // num_heads, qk_eps)
+        if layer_scale:
+            self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if layer_scale:
+            self.ls2 = LayerScale(dim)
 
 
 class DecoderBlock(nn.Module):
@@ -160,11 +185,13 @@ def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def layer_norm(p: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics."""
+def layer_norm(p: nn.LayerNorm, x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics, rounded once to
+    ``dtype`` (default: x's)."""
     y = F.layer_norm(x.float(), p.normalized_shape, p.weight.float(),
                      p.bias.float(), p.eps)
-    return y.to(x.dtype)
+    return y.to(dtype or x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -193,13 +220,22 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 def self_attn(p: Attention, x: torch.Tensor, rope=None, num_heads: int = 12,
               impl: Optional[str] = None) -> torch.Tensor:
     """Fused-qkv self-attention with RoPE on q, k. x: [B, N, D];
-    rope: (cos, sin) [B, N, 2, Dh//4]."""
+    rope: (cos, sin) [B, N, 2, Dh//4] (or [1, N, ...] for every batch
+    element). Where ``p`` holds ``q_norm`` / ``k_norm`` (QK-norm), each
+    head's q and k go through them first and stay fp32 through RoPE,
+    rounded once to x's dtype."""
     b, n, d = x.shape
+    qk_norm = hasattr(p, "q_norm")
     q, k, v = linear(p.qkv, x).chunk(3, dim=-1)
     q, k, v = (split_heads(t, num_heads) for t in (q, k, v))
+    if qk_norm:
+        q = layer_norm(p.q_norm, q, torch.float32)
+        k = layer_norm(p.k_norm, k, torch.float32)
     if rope is not None:
         q = apply_rope2d(q, *rope)
         k = apply_rope2d(k, *rope)
+    if qk_norm:
+        q, k = q.to(x.dtype), k.to(x.dtype)
     o = self_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                        impl=impl)
     return linear(p.proj, merge_heads(o))
@@ -252,12 +288,27 @@ def cross_attn(p: DecoderBlock, x: torch.Tensor, kv, labels: torch.Tensor,
 # Blocks
 # ---------------------------------------------------------------------------
 
+def scaled_add(x: torch.Tensor, branch: torch.Tensor,
+                ls: LayerScale) -> torch.Tensor:
+    """x + gamma * branch in fp32, rounded once to x's dtype."""
+    return torch.addcmul(x.float(), branch.float(), ls.gamma.float()
+                         ).to(x.dtype)
+
+
 def encoder_block(p: EncoderBlock, x: torch.Tensor, rope, num_heads: int,
-                  impl: Optional[str] = None) -> torch.Tensor:
-    """x += SA(norm1(x)); x += MLP(norm2(x))."""
-    x = x + self_attn(p.attn, layer_norm(p.norm1, x), rope=rope,
-                      num_heads=num_heads, impl=impl)
-    return x + mlp(p.mlp, layer_norm(p.norm2, x))
+                  impl: Optional[str] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x += SA(norm1(x)); x += MLP(norm2(x)). Where ``p`` holds LayerScale
+    (``ls1`` / ``ls2``) each branch is scaled by it and added in fp32;
+    ``dtype``: the branches compute in
+    it (the LayerNorms' outputs rounded to it) while the residual stream x
+    keeps its own dtype (default: x's)."""
+    layer_scale = hasattr(p, "ls1")
+    h = self_attn(p.attn, layer_norm(p.norm1, x, dtype), rope=rope,
+                  num_heads=num_heads, impl=impl)
+    x = scaled_add(x, h, p.ls1) if layer_scale else x + h
+    h = mlp(p.mlp, layer_norm(p.norm2, x, dtype))
+    return scaled_add(x, h, p.ls2) if layer_scale else x + h
 
 
 def _block_sa(p: DecoderBlock, x: torch.Tensor, rope, num_heads: int,

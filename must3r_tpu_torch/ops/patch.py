@@ -2,7 +2,7 @@
 
 Feature layout inside a patch is channel-major (c * P*P + i * P + j), the
 order of torch ``pixel_shuffle`` and of the reference conv patch-embed
-weight flattened as [D, 3*P*P].
+weight flattened as [D, 3*P*P]. Any patch size: 16 (MUSt3R), 14 (VGGT).
 """
 
 from __future__ import annotations
@@ -17,6 +17,18 @@ def patchify_positions(h_patches: int, w_patches: int,
     xs = torch.arange(w_patches, dtype=torch.int32, device=device)
     grid = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
     return grid.reshape(h_patches * w_patches, 2)
+
+
+def positions_with_special_tokens(h_patches: int, w_patches: int,
+                                  n_special: int, device=None
+                                  ) -> torch.Tensor:
+    """RoPE positions of a frame that leads with ``n_special`` tokens (VGGT:
+    camera and registers): (0, 0) for each of those, then (y + 1, x + 1)
+    for the patches, row-major: [n_special + h*w, 2] int32. A token at
+    (0, 0) is rotated by angle 0, so RoPE leaves it as it is."""
+    return torch.cat([
+        torch.zeros(n_special, 2, dtype=torch.int32, device=device),
+        patchify_positions(h_patches, w_patches, device) + 1])
 
 
 def unpatchify(x: torch.Tensor, patch_size: int, true_shape) -> torch.Tensor:

@@ -144,3 +144,20 @@ def make_c2w(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     c2w[..., :3, 3] = t
     c2w[..., 3, 3] = 1.0
     return c2w
+
+
+def pose_encoding_to_cameras(pose_enc: torch.Tensor, img_hw):
+    """VGGT's pose encoding [..., 9] (T, a quaternion with the scalar last,
+    FoV_h, FoV_w; the camera from the world, OpenCV axes) -> (c2w [..., 4,
+    4], focal [..., 2] = (f_x, f_y) in pixels of an H x W image with the
+    principal point at its centre)."""
+    enc = pose_enc.float()
+    x, y, z, w = enc[..., 3:7].unbind(-1)
+    rot = _quat_to_rotmat(torch.stack([w, x, y, z], dim=-1)
+                          / enc[..., 3:7].norm(dim=-1, keepdim=True))
+    rt = rot.transpose(-1, -2)
+    c2w = make_c2w(rt, -torch.einsum("...ij,...j->...i", rt, enc[..., :3]))
+    h, w_ = img_hw
+    focal = torch.stack([(w_ / 2.0) / torch.tan(enc[..., 8] / 2.0),
+                         (h / 2.0) / torch.tan(enc[..., 7] / 2.0)], dim=-1)
+    return c2w, focal

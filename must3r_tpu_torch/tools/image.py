@@ -314,6 +314,28 @@ def load_images(paths: Sequence[str], maxdim: int, patch_size: int = 16,
     return views
 
 
+def load_vggt_frames(paths: Sequence[str], width: int = 518,
+                     patch_size: int = 14) -> List[np.ndarray]:
+    """Frames for VGGT, as its published loader crops them: each image
+    resized (bicubic) to ``width`` wide and a height of the nearest
+    multiple of the patch that keeps its aspect, a taller result cropped
+    to ``width`` about its centre; float32 [H, W, 3] in [0, 1]."""
+    import PIL.Image
+
+    frames = []
+    for p in paths:
+        img = load_image(p)
+        h = int(round(img.shape[0] * width / img.shape[1] / patch_size)
+                ) * patch_size
+        img = np.asarray(PIL.Image.fromarray(img).resize(
+            (width, h), PIL.Image.Resampling.BICUBIC))
+        if h > width:
+            top = (h - width) // 2
+            img = img[top:top + width]
+        frames.append(img.astype(np.float32) / 255.0)
+    return frames
+
+
 def list_images(folder: str) -> List[str]:
     """Sorted image files of a folder, by extension."""
     return [os.path.join(folder, name) for name in sorted(os.listdir(folder))
