@@ -33,9 +33,11 @@ non-zero:
      512 x 384 per collection. Three requests: two collections through
      ``make_fused_offline`` and one through ``must3r_inference`` (linseq, the
      function behind the CLI). Launch counters are zeroed just before and
-     read just after, and must match the schedule. Outputs must be finite,
-     of the expected shapes, with proper rotations, and within 2e-2 relative
-     RMSE of the same requests run with the plain attention.
+     read just after, and must match the schedule (K1, K2, and G1-G4 for
+     every encoder block: the fused path, bf16 without a gradient).
+     Outputs must be finite, of the expected shapes, with proper rotations,
+     and within 2e-2 relative RMSE of the same requests run with the plain
+     attention.
   B''. K2(d), the 8-bit cache read (the TMA + wgmma program with the
      producer warpgroup converting the codes), against its plain version for
      int8 and fp8 caches (phase B's bounds): the render and the update of a
@@ -62,6 +64,17 @@ non-zero:
      ``torch.matmul`` alone beside it. Then ``tools/bench_ca_kernel.py
      --check`` and ``tools/bench_fused_chain.py`` as their users run them,
      counted: their launches must equal the tools' schedules.
+  L. The encoder block's glue (``csrc/block_glue_sm90.cu``): G1 ``ln_cast``,
+     G2 ``qkv_glue``, G3 ``residual_glue`` (after proj with norm2's output,
+     after fc2 in place) and G4 ``bias_gelu`` against their plain chains
+     (``ops/block_glue.py``) at VGGT's shapes (66,624 tokens; 1024, 3072,
+     4096 wide; the fp32 stream, LayerScale, QK-norm, the scene's tiled
+     RoPE tables) and MUSt3R's (80 x 768 tokens; the bf16 stream, a table
+     per view): bf16 outputs by ``tools/parity.py::bf16_agreement`` (one
+     ulp, or a few fp32 ulps of the terms where a value cancels to near 0;
+     99.9 % equal), the fp32 stream within one rounding of each term;
+     kernel and plain chain timed on the device, with the bytes moved, GB/s
+     and the share of 3.35 TB/s.
   D. The training path at full width, bf16, seeded random weights: D1 three
      ``make_train_step`` steps of MUSt3R_512 (batch 2, 4 views of 512 x 384,
      update steps of 2, 1, 1 views, 2 rendered, remat, dropout 0.1) whose
@@ -86,7 +99,8 @@ non-zero:
      committed_len = one frame and the labels past it -1), F3 F1's settings
      on an int8 memory over 12 frames (every CA launches K2(d), the bf16 K2
      never); each counted against the schedule (the encoder's and decoder's
-     SA and CA per frame, every other kernel 0), pts3d and pts3d_local
+     SA and CA per frame, G1-G4 for every encoder block, every other kernel
+     0), pts3d and pts3d_local
      within 2e-2 relative RMSE of the same stream with the plain attention
      frame by frame, every c2w a finite proper rotation; a frame after
      rolled-back ones equal to a stream that never saw them (bf16, int8).
@@ -183,9 +197,11 @@ non-zero:
      64 ragged sequences [64, 1041, 16, 64]. Then one request at full
      width (64 frames of 518 x 392, host float32, the benchmark's seeded
      weights of ``vggt_1b``) through ``demo.inference.vggt_inference``:
-     launch counts and ``vggt_counts()`` zeroed just before and read just
-     after must equal the schedule (K1 24 + 24 + 24 times, no other kernel;
-     64 frames, 24 x 66,624 global tokens, 16 DPT chunks); every output of
+     launch counts, ``vggt_counts()`` and ``glue_counts()`` zeroed just
+     before and read just after must equal the schedule (K1, G1, G2 and G4
+     24 + 24 + 24 times, G3 twice that, no other kernel; 64 frames, 24 x
+     66,624 global tokens, 16 DPT chunks; 72 blocks fused, the camera
+     trunk's 4 x 4 plain); every output of
      its shape and finite, every c2w a proper rotation; the maps, pose_enc
      and c2w within 2e-2 relative RMSE of the same request with the plain
      attention (the focal's printed: with random weights some fields of
@@ -196,7 +212,7 @@ JSON record (launches summed over the counted runs of C, D, E, F, G, both
 ranks of H, I, J but J2's comparison runs, K, the probe and the bench
 tools, device times at one main-path shape each, bound and library time)
 and ``{"ok": true, "device": {...}}``. About twelve to fifteen minutes on
-an H100, the build (four sources, one nvcc each, in parallel) included.
+an H100, the build (five sources, one nvcc each, in parallel) included.
 """
 
 import json
@@ -210,7 +226,8 @@ import torch
 # Kernel vs plain, bf16: the bounds of tools/parity.py (max abs error <=
 # min(TOL, MAX_ERR_REL x max|plain|), relative RMSE <= RMSE_REL).
 from must3r_tpu_torch.tools.parity import (MAX_ERR_REL, RMSE_REL, TOL,
-                                           kernel_error, rel_rmse)
+                                           bf16_agreement, kernel_error,
+                                           rel_rmse)
 # Kernel and library times: device_ms (a CUDA graph of REPS calls replayed);
 # plain versions: events_ms (CUDA events around a Python loop of calls, their
 # many small ops' launch path being part of what they cost).
@@ -936,8 +953,180 @@ def phase_bench_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# L. the encoder block's glue, G1-G4
+# ---------------------------------------------------------------------------
+
+GLUE_VGGT = (64, 1041)    # a VGGT scene: 64 frames of 1,041 tokens
+GLUE_MUST3R = (80, 768)   # the bulk cell's encode: 80 views of 512 x 384
+
+
+def phase_glue(dev):
+    """L. G1-G4 (``csrc/block_glue_sm90.cu``) against their plain chains
+    (``ops/block_glue.py``: what ``encoder_block`` ran between its products
+    before them) at VGGT's shapes (66,624 tokens of a 64-frame scene; D
+    1024, 3D 3072, F 4096; the fp32 stream with LayerScale, QK-norm and the
+    scene's tiled RoPE tables) and MUSt3R's (80 views of 768 tokens; the
+    bf16 stream, a table per view): every bf16 output by
+    ``tools/parity.py::bf16_agreement``, the fp32 stream within one fp32
+    rounding of each term;
+    then both timed on the device (a CUDA graph replayed), with the bytes
+    each kernel must move, its GB/s and its share of 3.35 TB/s. Returns
+    the rows of each kernel for the record."""
+    from must3r_tpu_torch.models.layers import EncoderBlock
+    from must3r_tpu_torch.ops import _kernels as K
+    from must3r_tpu_torch.ops import block_glue as G
+    from must3r_tpu_torch.ops.rope import make_rope_tables
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    d, f = 1024, 4096
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    blk = EncoderBlock(d, 4.0, 1e-6, layer_scale=True, qk_norm=True,
+                       num_heads=16).to(dev).requires_grad_(False)
+    with torch.no_grad():
+        for name, t in blk.named_parameters():
+            if name.endswith("gamma"):
+                t.copy_(randn(*t.shape, scale=0.005, shift=0.01))
+            elif t.dim() == 1:
+                t.copy_(randn(*t.shape, scale=0.1,
+                              shift=float(name.endswith("weight"))))
+    a = blk.attn
+    qk = dict(q_norm=(a.q_norm.weight, a.q_norm.bias),
+              k_norm=(a.k_norm.weight, a.k_norm.bias), eps=1e-5)
+    norm2 = (blk.norm2.weight, blk.norm2.bias)
+
+    def tables(b, n):
+        pos = torch.randint(0, 40, (b, n, 2), device=dev)
+        return make_rope_tables(pos, 64, base=100.0)
+
+    rows = {k: [] for k in GLUE_KERNELS}
+
+    def case(kernel, tag, fn, plain, nbytes, check):
+        got, want = fn(), plain()
+        sync()
+        err = check(got, want)
+        ms, plain_ms = device_ms(fn), device_ms(plain)
+        work = bound(0.0, nbytes)
+        log(f"[L] {kernel} {tag}: {err}; kernel {ms:.4f} ms, plain chain "
+            f"{plain_ms:.4f} ms ({plain_ms / ms:.2f}x); {nbytes / 1e6:.1f} MB"
+            f" moved, {nbytes / ms / 1e6:.0f} GB/s, {work['bound_ms'] / ms:.1%}"
+            f" of 3.35 TB/s")
+        rows[kernel].append(dict(shape=tag, max_abs_err=err["max_abs_err"],
+                                 ms=ms, plain_ms=plain_ms, library_ms=None,
+                                 bound_ms=work["bound_ms"],
+                                 bound_by=work["bound_by"]))
+
+    def ulp_check(got, want):
+        """Every bf16 output by ``tools/parity.py::bf16_agreement``."""
+        gots = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        res = {"ulps": 0, "equal": 1.0, "max_abs_err": 0.0, "past_limit": 0}
+        for g_, w_ in zip(gots, wants):
+            if g_ is None or g_.dtype == torch.float32:
+                continue                      # the fp32 stream: stream_check
+            e = bf16_agreement(g_, w_)
+            if not e["ok"]:
+                raise AssertionError(f"[L] the kernel disagrees: {e}")
+            res = {k: (min if k == "equal" else max)(res[k], e[k])
+                   for k in res}
+        return res
+
+    def stream_check(x0, y, bias, gamma):
+        """G3's outputs: the new x (in fp32 within one fp32 rounding of
+        each of its terms: addcmul may fuse gamma * h into the add, the
+        kernel rounds the product first; in bf16 equal), then xn."""
+        def check(got, want):
+            res = ulp_check((got[1],), (want[1],)) if got[1] is not None \
+                else {"max_abs_err": 0.0}
+            if got[0].dtype == torch.bfloat16:
+                res.update(x_equal=bool(torch.equal(got[0], want[0])))
+                if not res["x_equal"]:
+                    raise AssertionError("[L] the bf16 stream differs")
+                return res
+            h = (y + bias).to(torch.bfloat16).float()
+            lim = 2.0 ** -23 * (x0.abs() + (gamma * h).abs())
+            over = int(((got[0] - want[0]).abs() > lim).sum())
+            res.update(x_max_abs_err=float((got[0] - want[0]).abs().max()),
+                       x_over_one_rounding=over)
+            if over:
+                raise AssertionError(f"[L] fp32 stream: {over} elements "
+                                     f"past one rounding")
+            return res
+        return check
+
+    for cell, (b, n), stream in (("VGGT", GLUE_VGGT, torch.float32),
+                                 ("MUSt3R", GLUE_MUST3R, torch.bfloat16)):
+        t = b * n
+        vggt = cell == "VGGT"
+        sz = stream.itemsize
+        # G1, norm1
+        x = randn(t, d, scale=3.0, shift=0.5).to(stream)
+        w, bias = blk.norm1.weight, blk.norm1.bias
+        case("ln_cast", f"{cell} [{t},{d}] {str(stream)[6:]}",
+             lambda: K.ln_cast(x, w, bias, 1e-6),
+             lambda: G.ln_cast(x, w, bias, 1e-6), t * d * (sz + 2),
+             ulp_check)
+        # G2: VGGT's global block (one sequence, the frame's tables tiled),
+        # MUSt3R's encoder (a table per view)
+        y = randn(t, 3 * d)
+        if vggt:
+            rope = tuple(tb.repeat(1, b, 1, 1) for tb in tables(1, n))
+            gb, gn, kw = 1, t, qk
+        else:
+            rope, gb, gn, kw = tables(b, n), b, n, {}
+        nbytes = t * 3 * d * 6 + t * 2 * 2 * 16 * 4
+        case("qkv_glue", f"{cell} [{t},{3 * d}]"
+             f"{' QK-norm' if vggt else ''} RoPE",
+             lambda: K.qkv_glue(y, a.qkv.bias, gb, gn, rope=rope, **kw),
+             lambda: G.qkv_glue(y, a.qkv.bias, gb, gn, rope=rope, **kw),
+             nbytes, ulp_check)
+        del y, rope
+        # G3 after proj (a new x and norm2's output), after fc2 (in place)
+        y = randn(t, d)
+        gamma = blk.ls1.gamma if vggt else None
+        check = stream_check(x.float(), y, a.proj.bias, gamma)
+        case("residual_glue", f"{cell} after proj [{t},{d}]"
+             f"{' LayerScale' if vggt else ''} + norm2",
+             lambda: K.residual_glue(y, a.proj.bias, x, gamma, norm2, 1e-6),
+             lambda: G.residual_glue(y, a.proj.bias, x, gamma, norm2, 1e-6),
+             t * d * (4 + 2 * sz + 2), check)
+        xi = x.clone()
+        case("residual_glue", f"{cell} after fc2 [{t},{d}] in place",
+             lambda: K.residual_glue(y, a.proj.bias, xi, gamma,
+                                     inplace=True),
+             lambda: G.residual_glue(y, a.proj.bias, x, gamma),
+             t * d * (4 + 2 * sz), check)
+        del y, x, xi
+        # G4
+        y = randn(t, f, scale=3.0)
+        case("bias_gelu", f"{cell} [{t},{f}]",
+             lambda: K.bias_gelu(y, blk.mlp.fc1.bias),
+             lambda: G.bias_gelu(y, blk.mlp.fc1.bias), t * f * 6, ulp_check)
+        del y
+        torch.cuda.empty_cache()
+    sync()
+    log(f"[L] phase L: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # C. the slice
 # ---------------------------------------------------------------------------
+
+GLUE_KERNELS = ("ln_cast", "qkv_glue", "residual_glue", "bias_gelu")
+
+
+def add_glue(c: dict, blocks: int) -> dict:
+    """c plus the glue launches of ``blocks`` encoder blocks on the fused
+    path (``models/layers.py::glued_block``): G1, G2 and G4 once a block,
+    G3 twice (after proj and after fc2)."""
+    for k, n in zip(GLUE_KERNELS, (1, 1, 2, 1)):
+        c[k] = c.get(k, 0) + n * blocks
+    return c
+
 
 def expected_launches(enc_cfg, dec_cfg, n_views, fused, encode_bs=8,
                       render_bs=8, init=2):
@@ -1033,10 +1222,14 @@ def phase_slice(dev, enc_cfg, dec_cfg, n_views=N_VIEWS, hw=HW):
 
     for (tag, _, fused), moved, s in zip(requests, per_request, secs):
         want = expected_launches(enc_cfg, dec_cfg, n_views, fused)
+        enc_calls = 1 if fused else math.ceil(n_views / 8)
+        glue = add_glue({}, enc_calls * enc_cfg.depth)
         log(f"[C] {tag}: {s * 1e3:.1f} ms, launches {moved} "
-            f"(expected sa_fwd {want[0]}, ca_fwd {want[1]})")
-        if (moved["sa_fwd"], moved["ca_fwd"]) != want:
-            raise AssertionError(f"{tag}: launches {moved} != {want}")
+            f"(expected sa_fwd {want[0]}, ca_fwd {want[1]}, glue {glue})")
+        if (moved["sa_fwd"], moved["ca_fwd"]) != want or \
+                {k: moved[k] for k in glue} != glue:
+            raise AssertionError(f"{tag}: launches {moved} != {want}, "
+                                 f"{glue}")
 
     for (tag, _, _), out, fn in zip(requests, outs, plain_requests):
         check_result(tag, out, n_views, hw)
@@ -1086,13 +1279,18 @@ def expected_train_launches(enc_cfg, dec_cfg, ts, n_tokens) -> dict:
     LSE); its backward K5 where the JAX routing folds (G > 1, G x
     128-aligned N <= 2048), else K3 + K4. The render (G folded into the
     CA's query axis): one SA and one CA per block, backward K3 + K4. The SA
-    backward recomputes through the plain version (no kernel)."""
+    backward recomputes through the plain version (no kernel). The frozen
+    encoder's blocks take the fused path (no gradient; bf16); a finetuned
+    one's need a gradient and run plain."""
+    from must3r_tpu_torch.engine.train import compute_dtype
     from must3r_tpu_torch.ops.attention import _fold_stripe, launch_counts
 
     depth = dec_cfg.depth
     c = {k: 0 for k in launch_counts()}
     c["sa_fwd"] = enc_cfg.depth * (2 if (ts.finetune_encoder and ts.remat)
                                    else 1)
+    if not ts.finetune_encoder and compute_dtype(ts) == torch.bfloat16:
+        add_glue(c, enc_cfg.depth)
     for i, g in enumerate(ts.mem_batches):
         grad = i >= ts.train_decoder_skip
         c["sa_fwd"] += depth * (2 if (grad and ts.remat) else 1)
@@ -1475,7 +1673,7 @@ def slam_launches(enc_cfg, dec_cfg, encodes, steps=None, q8=False) -> dict:
     c = {k: 0 for k in launch_counts()}
     c["sa_fwd"] = encodes * enc_cfg.depth + steps * dec_cfg.depth
     c["ca_fwd_q8" if q8 else "ca_fwd"] = steps * dec_cfg.depth
-    return c
+    return add_glue(c, encodes * enc_cfg.depth)
 
 
 def _check_slam_counts(tag, got, want):
@@ -1734,10 +1932,10 @@ def retrieval_launches(enc_cfg, dec_cfg, n_views, n_mem, encodes=2,
 
     steps = 1 + max(n_mem - init, 0) + math.ceil(n_views / render_bs)
     c = {k: 0 for k in launch_counts()}
-    c["sa_fwd"] = (encodes * math.ceil(n_views / encode_bs) * enc_cfg.depth
-                   + steps * dec_cfg.depth)
+    enc_blocks = encodes * math.ceil(n_views / encode_bs) * enc_cfg.depth
+    c["sa_fwd"] = enc_blocks + steps * dec_cfg.depth
     c["ca_fwd"] = steps * dec_cfg.depth
-    return c
+    return add_glue(c, enc_blocks)
 
 
 def eval_launches(enc_cfg, dec_cfg, passes) -> dict:
@@ -1751,6 +1949,7 @@ def eval_launches(enc_cfg, dec_cfg, passes) -> dict:
         steps = 1 + max(k - 2, 0) + 1
         c["sa_fwd"] += batches * (enc_cfg.depth + steps * dec_cfg.depth)
         c["ca_fwd"] += batches * steps * dec_cfg.depth
+        add_glue(c, batches * enc_cfg.depth)
     return c
 
 
@@ -3404,18 +3603,24 @@ VGGT_MAPS = ("depth", "depth_conf", "world_points", "world_points_conf")
 
 
 def vggt_schedule(cfg, n_frames: int, hw) -> tuple:
-    """(launches, vggt_counts) of one VGGT request: K1 once a block of the
-    tower, the frame and the global attention, no other kernel; the
-    frames, the tokens through global attention summed over its layers,
-    and the DPT chunks of both heads."""
+    """(launches, vggt_counts, glue_counts) of one VGGT request: K1 and the
+    block glue G1-G4 once a block of the tower, the frame and the global
+    attention (G3 twice), no other kernel; the frames, the tokens through
+    global attention summed over its layers, and the DPT chunks of both
+    heads; those blocks fused, the fp32 camera trunk's plain, each run
+    camera_iterations times."""
     from must3r_tpu_torch.ops.attention import launch_counts
     tokens = cfg.n_special + (hw[0] // cfg.patch_size) * (
         hw[1] // cfg.patch_size)
+    blocks = cfg.tower_depth + 2 * cfg.depth
     launches = {k: 0 for k in launch_counts()}
-    launches["sa_fwd"] = cfg.tower_depth + 2 * cfg.depth
+    launches["sa_fwd"] = blocks
+    add_glue(launches, blocks)
     return launches, {
         "frames": n_frames, "global_tokens": cfg.depth * n_frames * tokens,
-        "dpt_chunks": 2 * math.ceil(n_frames / cfg.dpt_frames_chunk)}
+        "dpt_chunks": 2 * math.ceil(n_frames / cfg.dpt_frames_chunk)}, {
+        "fused_blocks": blocks,
+        "plain_blocks": cfg.camera_trunk_depth * cfg.camera_iterations}
 
 
 def check_vggt(tag, out, n_frames, hw):
@@ -3456,6 +3661,7 @@ def phase_vggt(dev, totals, sa):
     from must3r_tpu_torch.config import vggt_1b_config
     from must3r_tpu_torch.demo.inference import vggt_inference
     from must3r_tpu_torch.engine.inference import VGGTCore
+    from must3r_tpu_torch.models.layers import glue_counts, reset_glue_counts
     from must3r_tpu_torch.models.vggt import reset_vggt_counts, vggt_counts
     from must3r_tpu_torch.ops.attention import (launch_counts,
                                                 reset_launch_counts,
@@ -3496,14 +3702,16 @@ def phase_vggt(dev, totals, sa):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     reset_vggt_counts()
+    reset_glue_counts()
     t0 = time.perf_counter()
     out = vggt_inference(core, frames)
     secs = time.perf_counter() - t0
-    got, got_v = launch_counts(), vggt_counts()
+    got, got_v, got_g = launch_counts(), vggt_counts(), glue_counts()
     peak = torch.cuda.max_memory_allocated()
-    want, want_v = vggt_schedule(cfg, VGGT_FRAMES, VGGT_HW)
+    want, want_v, want_g = vggt_schedule(cfg, VGGT_FRAMES, VGGT_HW)
     _check_counts(tag, got, want, phase="K")
     _check_counts(f"{tag} vggt_counts", got_v, want_v, phase="K")
+    _check_counts(f"{tag} glue_counts", got_g, want_g, phase="K")
     for key, n in got.items():
         totals[key] += n
     out = {key: np.array(a) for key, a in out.items()}
@@ -3563,6 +3771,7 @@ def main():
     q8 = phase_q8_kernels(dev)
     probe, probe_counts = phase_probe(dev)
     rows_2h, rows_ln, bench_counts = phase_bench_kernels(dev)
+    glue_rows = phase_glue(dev)
     counts = dict(phase_slice(dev, *must3r_512_configs()))
     phase_train(dev, counts)
     phase_q8_slice(dev, *must3r_512_configs(), counts)
@@ -3610,6 +3819,9 @@ def main():
               0),
         entry("ln_matmul", ln, "scripts/bench_fused_chain.py:38", rows_ln,
               0),
+        *(entry(k, "must3r_tpu_torch/csrc/block_glue_sm90.cu",
+                "none (XLA fuses the block's glue)", glue_rows[k], 0)
+          for k in GLUE_KERNELS),
     ]}
     log(f"[R] record times: sa_fwd at {sa[0]['shape']}, ca_fwd at "
         f"{ca[-1]['shape']}, ca_bwd_dq / ca_bwd_dkv at "
@@ -3617,7 +3829,8 @@ def main():
         f"{train_k['ca_bwd_fused'][2]['shape']}, ca_fwd_q8 at "
         f"{q8[0]['shape']}, the probe kernels at the probe's shapes, "
         f"ca_fwd_2h at {rows_2h[0]['shape']}, ln_matmul at "
-        f"{rows_ln[0]['shape']}; launches summed over the counted runs of "
+        f"{rows_ln[0]['shape']}, G1-G4 at phase L's first VGGT rows; "
+        f"launches summed over the counted runs of "
         f"phases C, D, E, F, G, H (both ranks), I, J (not J2's "
         f"comparison runs) and K, the probe's entry point "
         f"and the two bench "

@@ -14,6 +14,13 @@ On a CUDA tensor below fp32, ``linear`` runs as ``_Linear32``: bf16
 products with fp32 accumulation (``torch.mm(..., out_dtype=float32)``)
 forward and backward, so autograd needs no derivative of that op. The
 weight gradient comes out fp32, the dtype of the trainable weights.
+
+``encoder_block`` takes a fused path where its input allows
+(:func:`use_block_glue`): on the card, with no gradient, a bf16 branch and
+64-channel heads, the glue between its products runs as four kernels
+(``ops/block_glue.py``), each reading a product's fp32 output once, with the
+roundings of the plain composition below. :func:`glue_counts` counts the
+blocks that took each path.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from must3r_tpu_torch.ops import block_glue
+from must3r_tpu_torch.ops._kernels import GLUE_MAX_WIDTH, GLUE_VEC
 from must3r_tpu_torch.ops.attention import (memory_cross_attention,
                                             self_attention)
 from must3r_tpu_torch.ops.rope import apply_rope2d
@@ -295,6 +304,73 @@ def scaled_add(x: torch.Tensor, branch: torch.Tensor,
                          ).to(x.dtype)
 
 
+# encoder_block calls since the last reset_glue_counts(), by path
+_glue_counts = {"fused_blocks": 0, "plain_blocks": 0}
+
+
+def glue_counts() -> dict:
+    return dict(_glue_counts)
+
+
+def reset_glue_counts():
+    for k in _glue_counts:
+        _glue_counts[k] = 0
+
+
+def _f32(*ts):
+    return tuple(t.float() for t in ts)
+
+
+def use_block_glue(on_cuda: bool, impl: Optional[str], needs_grad: bool,
+                   branch_dtype: torch.dtype, stream_dtype: torch.dtype,
+                   width: int, hidden: int, num_heads: int) -> bool:
+    """Whether :func:`encoder_block` takes its fused path: x on the card
+    with the kernels asked for (``impl`` None), no gradient needed, the
+    branches in bf16 over an fp32 or bf16 residual stream, heads of 64
+    channels, and widths the kernels take (rows of at most 2048, multiples
+    of 8). Everything else (the CPU, ``impl="plain"``, fp32 blocks, a
+    backward) runs the plain composition."""
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    return (on_cuda and impl is None and not needs_grad
+            and branch_dtype == torch.bfloat16
+            and stream_dtype in (torch.float32, torch.bfloat16)
+            and width == num_heads * block_glue.HEAD_DIM
+            and width <= GLUE_MAX_WIDTH and hidden % GLUE_VEC == 0)
+
+
+def glued_block(p: EncoderBlock, x: torch.Tensor, rope,
+                glue=block_glue.KERNELS) -> torch.Tensor:
+    """:func:`encoder_block` as its fused path runs it: G1, the qkv
+    product, G2, K1, the proj product, G3 (a new x, and norm2's output),
+    fc1, G4, fc2, G3 (into that x); with ``glue`` ``PLAIN`` their plain
+    statements and the plain attention. Each product's fp32 output is read
+    once, by the glue that follows it. x: [B, N, D], heads of 64 channels."""
+    b, n, d = x.shape
+    a, m = p.attn, p.mlp
+    gamma1, gamma2 = ((p.ls1.gamma.float(), p.ls2.gamma.float())
+                      if hasattr(p, "ls1") else (None, None))
+    qk = {}
+    if hasattr(a, "q_norm"):
+        qk = dict(q_norm=_f32(a.q_norm.weight, a.q_norm.bias),
+                  k_norm=_f32(a.k_norm.weight, a.k_norm.bias),
+                  eps=a.q_norm.eps)
+    if rope is not None:
+        rope = tuple(t.contiguous() for t in rope)
+    x = x.reshape(b * n, d).contiguous()
+    h = glue.ln_cast(x, *_f32(p.norm1.weight, p.norm1.bias), p.norm1.eps)
+    q, k, v = glue.qkv_glue(glue.product(h, a.qkv.weight),
+                            a.qkv.bias.float(), b, n, rope=rope, **qk)
+    o = glue.attention(q, k, v)
+    x, h = glue.residual_glue(
+        glue.product(o.reshape(b * n, d), a.proj.weight), a.proj.bias.float(),
+        x, gamma1, norm=_f32(p.norm2.weight, p.norm2.bias), eps=p.norm2.eps)
+    h = glue.bias_gelu(glue.product(h, m.fc1.weight), m.fc1.bias.float())
+    x, _ = glue.residual_glue(glue.product(h, m.fc2.weight),
+                              m.fc2.bias.float(), x, gamma2, inplace=True)
+    return x.reshape(b, n, d)
+
+
 def encoder_block(p: EncoderBlock, x: torch.Tensor, rope, num_heads: int,
                   impl: Optional[str] = None,
                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -302,7 +378,15 @@ def encoder_block(p: EncoderBlock, x: torch.Tensor, rope, num_heads: int,
     (``ls1`` / ``ls2``) each branch is scaled by it and added in fp32;
     ``dtype``: the branches compute in
     it (the LayerNorms' outputs rounded to it) while the residual stream x
-    keeps its own dtype (default: x's)."""
+    keeps its own dtype (default: x's). Where :func:`use_block_glue` holds
+    it runs as :func:`glued_block`."""
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.parameters()))
+    if use_block_glue(x.is_cuda, impl, needs_grad, dtype or x.dtype, x.dtype,
+                      x.shape[-1], p.mlp.fc1.out_features, num_heads):
+        _glue_counts["fused_blocks"] += 1
+        return glued_block(p, x, rope)
+    _glue_counts["plain_blocks"] += 1
     layer_scale = hasattr(p, "ls1")
     h = self_attn(p.attn, layer_norm(p.norm1, x, dtype), rope=rope,
                   num_heads=num_heads, impl=impl)

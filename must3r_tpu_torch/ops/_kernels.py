@@ -4,10 +4,12 @@ Each source (``attention_sm90.cu``: the forwards K1, K2, K2(d) (the
 8-bit cache read) and K6 (two heads per block), one TMA + wgmma program;
 ``attention_bwd_sm90.cu``: the CA backwards K3 (dQ), K4 (dK|dV) and K5
 (both), TMA + wgmma programs; ``probe_fp8.cu``: the fp8 probe kernels;
-``ln_matmul_sm90.cu``: K7, LayerNorm + matmul, a TMA + wgmma program) is
-compiled with ``nvcc`` at first use into its own shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-bound by ``ENTRIES``, and keyed on a hash of the source,
+``ln_matmul_sm90.cu``: K7, LayerNorm + matmul, a TMA + wgmma program;
+``block_glue_sm90.cu``: the pre-norm encoder block's glue between its
+products, G1 ``ln_cast``, G2 ``qkv_glue``, G3 ``residual_glue`` and G4
+``bias_gelu``, row kernels) is compiled with ``nvcc`` at first use into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), bound by ``ENTRIES``, and keyed on a hash of the source,
 the shared headers and the flags, under ``build/kernels/`` at the root of
 the checkout. The sources are compiled in parallel, one ``nvcc`` each, and
 the libraries loaded with ``ctypes``. Nothing is built or loaded when this
@@ -34,7 +36,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 SOURCES = (_CSRC / "attention_sm90.cu", _CSRC / "attention_bwd_sm90.cu",
-           _CSRC / "probe_fp8.cu", _CSRC / "ln_matmul_sm90.cu")
+           _CSRC / "probe_fp8.cu", _CSRC / "ln_matmul_sm90.cu",
+           _CSRC / "block_glue_sm90.cu")
 HEADERS = (_CSRC / "common.cuh", _CSRC / "sm90.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +48,9 @@ _GRID_YZ_MAX = 65535
 # block in shared memory as fp32 (K at most 8192), N in tiles of 128 (or
 # 192) columns, 128 rows a block
 LN_K_STEP, LN_MAX_K, LN_N_STEP, LN_ROWS = 64, 8192, 128, 128
+# G1-G4 (csrc/block_glue_sm90.cu): 8-element (16-byte) chunks, a row held
+# in one warp's registers (G1, G3: at most 2048 wide), 64-channel heads
+GLUE_VEC, GLUE_MAX_WIDTH, GLUE_HEAD_DIM = 8, 2048, 64
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -101,7 +107,7 @@ def build_log() -> str:
     return "".join(p.read_text() for p in logs if p.exists())
 
 
-_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entries of each source's library, with their argument types (every
 # one returns an int: 0, or the cudaError_t of a refused launch)
 ENTRIES = {
@@ -120,6 +126,11 @@ ENTRIES = {
         "must3r_fp8_dequant_dot": [_PTR] * 3 + [_I32] * 3 + [_PTR]},
     "ln_matmul_sm90": {
         "must3r_ln_matmul_bf16": [_PTR] * 6 + [_I32] * 3 + [_PTR]},
+    "block_glue_sm90": {
+        "must3r_ln_cast": [_PTR] * 4 + [_I32] * 3 + [_F32, _PTR],
+        "must3r_qkv_glue": [_PTR] * 11 + [_I32] * 4 + [_F32, _PTR],
+        "must3r_residual_glue": [_PTR] * 8 + [_I32] * 3 + [_F32, _PTR],
+        "must3r_bias_gelu": [_PTR] * 3 + [_I32] * 2 + [_PTR]},
 }
 
 
@@ -561,5 +572,175 @@ def ln_matmul(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 ln_matmul.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# G1-G4: the pre-norm encoder block's glue (csrc/block_glue_sm90.cu)
+# ---------------------------------------------------------------------------
+
+_STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_rows(what: str, d: int, limit: Optional[int] = GLUE_MAX_WIDTH):
+    if d <= 0 or d % GLUE_VEC or (limit is not None and d > limit):
+        raise ValueError(f"{what}: width {d} must be a positive multiple of "
+                         f"{GLUE_VEC}" + (f" and at most {limit}" if limit
+                                          else ""))
+
+
+def _check_vec(name: str, t: torch.Tensor, n: int, device):
+    _check(name, t, torch.float32, 1, device)
+    if t.shape[0] != n:
+        raise ValueError(f"{name}: {tuple(t.shape)}, expected ({n},)")
+
+
+def ln_cast(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """G1: bf16(LayerNorm(x) * w + b) with fp32 statistics; x [T, D] fp32
+    or bf16 (D a multiple of 8, at most 2048), w / b [D] fp32 -> [T, D]
+    bf16. One warp a row."""
+    dev = x.device
+    _check("x", x, _STREAM_DTYPES, 2, dev)
+    t, d = x.shape
+    _check_rows("ln_cast", d)
+    _check_vec("w", w, d, dev)
+    _check_vec("b", b, d, dev)
+    out = torch.empty((t, d), dtype=torch.bfloat16, device=dev)
+    if t:
+        with torch.cuda.device(dev):
+            err = _load("block_glue_sm90").must3r_ln_cast(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), t,
+                d, int(x.dtype == torch.bfloat16), float(eps), _stream(dev))
+        _raise_on(err, "ln_cast")
+        ln_cast.launches += 1
+    return out
+
+
+ln_cast.launches = 0
+
+
+def qkv_glue(y: torch.Tensor, bias: torch.Tensor, b: int, n: int,
+             q_norm=None, k_norm=None, eps: float = 0.0, rope=None):
+    """G2: the qkv product's fp32 output y [B * N, 3 * D] (D = H * 64) and
+    its bias [3 * D] fp32 -> q, k, v, each [B, N, H, 64] bf16 and
+    contiguous (K1's layout). r = bf16(y + bias); v = r; q and k, where
+    ``q_norm`` / ``k_norm`` ((w, b), each [64] fp32) are given, LayerNormed
+    over each head's 64 channels with ``eps``, and where ``rope`` ((cos,
+    sin), each [1 | B, N, 2, 16] fp32, ``ops/rope.py``'s tables) is given,
+    rotated; both in fp32, rounded once to bf16."""
+    dev = y.device
+    _check("y", y, torch.float32, 2, dev)
+    t, d3 = y.shape
+    d = d3 // 3
+    if d3 % 3 or d % GLUE_HEAD_DIM or t != b * n:
+        raise ValueError(f"qkv_glue: y {tuple(y.shape)} is not [B * N, 3 * "
+                         f"H * {GLUE_HEAD_DIM}] with B = {b}, N = {n}")
+    if t * d3 // GLUE_VEC >= 2 ** 31:
+        raise ValueError(f"qkv_glue: y {tuple(y.shape)} is too large")
+    _check_vec("bias", bias, d3, dev)
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError("qkv_glue: QK-norm takes both q_norm and k_norm")
+    norms = []
+    for name, pair in (("q_norm", q_norm), ("k_norm", k_norm)):
+        if pair is not None:
+            for t_ in pair:
+                _check_vec(name, t_, GLUE_HEAD_DIM, dev)
+                norms.append(t_)
+    batched = 0
+    if rope is not None:
+        for name, tab in zip(("cos", "sin"), rope):
+            _check(name, tab, torch.float32, 4, dev)
+            if tab.shape[0] not in (1, b) or tuple(tab.shape[1:]) != (
+                    n, 2, GLUE_HEAD_DIM // 4):
+                raise ValueError(f"qkv_glue: rope {name} {tuple(tab.shape)},"
+                                 f" expected [1 | {b}, {n}, 2, "
+                                 f"{GLUE_HEAD_DIM // 4}]")
+        batched = int(rope[0].shape[0] == b and b > 1)
+        if rope[1].shape != rope[0].shape:
+            raise ValueError("qkv_glue: cos and sin differ in shape")
+    shape = (b, n, d // GLUE_HEAD_DIM, GLUE_HEAD_DIM)
+    q, k, v = (torch.empty(shape, dtype=torch.bfloat16, device=dev)
+               for _ in range(3))
+    if t:
+        qn_w, qn_b, kn_w, kn_b = norms or (None,) * 4
+        cos, sin = rope if rope is not None else (None, None)
+        with torch.cuda.device(dev):
+            err = _load("block_glue_sm90").must3r_qkv_glue(
+                y.data_ptr(), bias.data_ptr(), _ptr(qn_w), _ptr(qn_b),
+                _ptr(kn_w), _ptr(kn_b), _ptr(cos), _ptr(sin), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), t, d, n, batched, float(eps),
+                _stream(dev))
+        _raise_on(err, "qkv_glue")
+        qkv_glue.launches += 1
+    return q, k, v
+
+
+qkv_glue.launches = 0
+
+
+def residual_glue(y: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                  gamma: Optional[torch.Tensor] = None, norm=None,
+                  eps: float = 0.0, inplace: bool = False):
+    """G3: a branch product's fp32 output y [T, D] and its bias [D] fp32,
+    the residual stream x [T, D] fp32 or bf16 -> (x', xn). h = bf16(y +
+    bias); x' = x + gamma * h (``gamma`` [D] fp32, LayerScale) or x + h, in
+    fp32, rounded once to x's dtype; written into x with ``inplace``, else
+    to a new tensor. xn = bf16(LayerNorm(x') * w + b) with ``norm`` ((w,
+    b), each [D] fp32) and ``eps``, else None."""
+    dev = x.device
+    _check("y", y, torch.float32, 2, dev)
+    _check("x", x, _STREAM_DTYPES, 2, dev)
+    t, d = x.shape
+    if tuple(y.shape) != (t, d):
+        raise ValueError(f"residual_glue: y {tuple(y.shape)} != x "
+                         f"{tuple(x.shape)}")
+    _check_rows("residual_glue", d)
+    _check_vec("bias", bias, d, dev)
+    if gamma is not None:
+        _check_vec("gamma", gamma, d, dev)
+    if norm is not None:
+        for t_ in norm:
+            _check_vec("norm", t_, d, dev)
+    out = x if inplace else torch.empty_like(x)
+    xn = (torch.empty((t, d), dtype=torch.bfloat16, device=dev)
+          if norm is not None else None)
+    if t:
+        nw, nb = norm if norm is not None else (None, None)
+        with torch.cuda.device(dev):
+            err = _load("block_glue_sm90").must3r_residual_glue(
+                y.data_ptr(), bias.data_ptr(), x.data_ptr(), out.data_ptr(),
+                _ptr(gamma), _ptr(nw), _ptr(nb), _ptr(xn), t, d,
+                int(x.dtype == torch.bfloat16), float(eps), _stream(dev))
+        _raise_on(err, "residual_glue")
+        residual_glue.launches += 1
+    return out, xn
+
+
+residual_glue.launches = 0
+
+
+def bias_gelu(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """G4: bf16(gelu(bf16(y + bias))), the exact erf GELU in fp32; y [T,
+    F] fp32 (F a multiple of 8), bias [F] fp32 -> [T, F] bf16."""
+    dev = y.device
+    _check("y", y, torch.float32, 2, dev)
+    t, f = y.shape
+    _check_rows("bias_gelu", f, limit=None)
+    _check_vec("bias", bias, f, dev)
+    if t * f // GLUE_VEC >= 2 ** 31:
+        raise ValueError(f"bias_gelu: y {tuple(y.shape)} is too large")
+    out = torch.empty((t, f), dtype=torch.bfloat16, device=dev)
+    if t:
+        with torch.cuda.device(dev):
+            err = _load("block_glue_sm90").must3r_bias_gelu(
+                y.data_ptr(), bias.data_ptr(), out.data_ptr(), t, f,
+                _stream(dev))
+        _raise_on(err, "bias_gelu")
+        bias_gelu.launches += 1
+    return out
+
+
+bias_gelu.launches = 0
+
+
 KERNELS = (sa_fwd, ca_fwd, ca_bwd_dq, ca_bwd_dkv, ca_bwd_fused, ca_fwd_q8,
-           fp8_to_bf16_x2, fp8_dequant_dot, ca_fwd_2h, ln_matmul)
+           fp8_to_bf16_x2, fp8_dequant_dot, ca_fwd_2h, ln_matmul, ln_cast,
+           qkv_glue, residual_glue, bias_gelu)

@@ -14,6 +14,7 @@ import torch
 
 from must3r_tpu.ops.attention import INT32_MAX, _ca_pallas, _sa_pallas
 from must3r_tpu_torch.memory import quantize_kv
+from must3r_tpu_torch.models.layers import EncoderBlock, encoder_block
 from must3r_tpu_torch.ops import attention as tatt
 from must3r_tpu_torch.ops import bench_kernels
 from must3r_tpu_torch.ops import fp8
@@ -159,10 +160,16 @@ def test_cpu_tensors_leave_launch_counts_alone(rng):
         q[:, None], kv[None], torch.zeros(1, 16, dtype=torch.int32), 16, 0)
     bench_kernels.ln_matmul(q[0, :, 0], torch.ones(DH), torch.zeros(DH),
                             torch.ones(DH, 4))
+    blk = EncoderBlock(2 * DH, 4.0, 1e-6, num_heads=2)
+    with torch.no_grad():
+        encoder_block(blk, q.reshape(1, 20, 2 * DH).to(torch.bfloat16), None,
+                      2)
     counts = tatt.launch_counts()
     assert set(counts) == {"sa_fwd", "ca_fwd", "ca_bwd_dq", "ca_bwd_dkv",
                            "ca_bwd_fused", "ca_fwd_q8", "fp8_to_bf16_x2",
-                           "fp8_dequant_dot", "ca_fwd_2h", "ln_matmul"}
+                           "fp8_dequant_dot", "ca_fwd_2h", "ln_matmul",
+                           "ln_cast", "qkv_glue", "residual_glue",
+                           "bias_gelu"}
     assert not any(counts.values()), counts
 
 

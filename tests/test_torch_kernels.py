@@ -191,7 +191,8 @@ def test_every_bound_entry_is_defined_with_its_arguments():
     the ``extern "C"`` block of its source in ``SOURCES``, with one parameter
     for each of its argtypes, a pointer where a pointer is declared and an
     int where an int is; the blocks define nothing else (runs on the CPU: a
-    stale binding would otherwise show only on the card)."""
+    stale binding would otherwise show only on the card); a float where a
+    float is."""
     import ctypes
     import re
 
@@ -209,8 +210,9 @@ def test_every_bound_entry_is_defined_with_its_arguments():
                    for p in params.split(",")]
             for name, params in re.findall(r"\bint (\w+)\(([^)]*)\)\s*\{",
                                            blocks[0])}
-        want = {name: ["ptr" if t is ctypes.c_void_p else "int"
-                       for t in types]
+        kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+                 ctypes.c_float: "float"}
+        want = {name: [kinds[t] for t in types]
                 for name, types in _kernels.ENTRIES[src.stem].items()}
         assert defined == want, src.name
 
